@@ -1,0 +1,184 @@
+"""Plain PyTorch versions of the two decode kernels.
+
+These are the oracles the CUDA kernels are held against, and what the
+kernel wrappers in `kernels.ops` run for tensors that live on the CPU.
+They repeat the kernels' arithmetic step for step and are no yardstick
+of speed.
+
+The LZ77 match phase: command expansion is a scatter + cumsum, match
+self-overlap folds via the modulo trick, and cross-command dependencies
+resolve with pointer doubling. Resolution rounds come in two flavours:
+
+  * fixed (`n_rounds = int`) — the archive's recorded chain depth or a
+    depth bucket's round count (`core.depth.scheduled_rounds`);
+  * early-exit (`n_rounds = None`) — stop after the round in which no
+    pointer moved, capped at `log2_rounds(out_size)` so a malformed
+    archive whose pointers form a cycle cannot hang the decode.
+
+All functions are batched over a leading block/stream axis (PyTorch has
+no vmap on this path; the batch dimension is written out).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.depth import log2_rounds
+from repro_torch.core.entropy import build_tables
+from repro_torch.core.format import MAX_LANES, PROB_BITS, PROB_SCALE, RANS_L
+
+__all__ = ["log2_rounds", "expand_pointers", "resolve_rounds",
+           "lz77_decode_blocks_ref", "rans_tables", "rans_decode_ref"]
+
+_M32 = 0xFFFFFFFF
+
+
+# --------------------------------------------------------------- LZ77 match
+def expand_pointers(lit_lens: torch.Tensor, match_lens: torch.Tensor,
+                    offsets: torch.Tensor, n_cmds: torch.Tensor,
+                    block_len: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Per-output-byte source pointers for a batch of self-contained blocks.
+
+    (B, C) command planes with block-local offsets → i64[B, out_size]:
+    ptr >= 0 copies from output position ptr; ptr < 0 is literal index
+    -(ptr + 1). Bytes >= block_len get literal 0 (ptr = -1).
+    """
+    B, C = lit_lens.shape
+    dev = lit_lens.device
+    cmd_ids = torch.arange(C, device=dev)
+    valid = cmd_ids[None, :] < n_cmds.long()[:, None]
+    ll = torch.where(valid, lit_lens.long(), 0)
+    ml = torch.where(valid, match_lens.long(), 0)
+    off = offsets.long()
+
+    tot = ll + ml
+    cum_tot = torch.cumsum(tot, dim=1)              # command end positions
+    P = cum_tot - tot                               # command start positions
+    cum_lit = torch.cumsum(ll, dim=1) - ll          # literal base per command
+
+    # command-of-byte via scatter(+1 at command ends) then cumsum
+    ends = torch.where(valid, cum_tot.clamp(max=out_size), out_size)
+    marks = torch.zeros(B, out_size + 1, dtype=torch.long, device=dev)
+    marks.scatter_add_(1, ends, valid.long())
+    cmd_of = torch.cumsum(marks, dim=1)[:, :out_size].clamp(max=C - 1)
+
+    i = torch.arange(out_size, device=dev)[None, :]
+    P_c = torch.gather(P, 1, cmd_of)
+    ll_c = torch.gather(ll, 1, cmd_of)
+    off_c = torch.gather(off, 1, cmd_of)
+    rel = i - P_c
+    is_lit = rel < ll_c
+    lit_idx = torch.gather(cum_lit, 1, cmd_of) + rel
+    # match source with self-overlap folding
+    d = (P_c + ll_c - off_c).clamp(min=1)           # distance >= 1
+    mptr = off_c + torch.remainder(rel - ll_c, d)
+    ptr = torch.where(is_lit, -(lit_idx + 1), mptr)
+    return torch.where(i < block_len.long()[:, None], ptr, -1)
+
+
+def _double_round(p: torch.Tensor) -> torch.Tensor:
+    nxt = torch.gather(p, 1, p.clamp(0, p.shape[1] - 1))
+    return torch.where(p >= 0, nxt, p)
+
+
+def resolve_rounds(ptr: torch.Tensor,
+                   n_rounds: Optional[int] = None) -> torch.Tensor:
+    """The pointer-doubling recurrence over (B, N) pointer rows.
+
+    `n_rounds=None` runs until no pointer moves, capped at
+    `log2_rounds(N)`: any valid parse converges within that, so the cap
+    only stops a cyclic (malformed) archive from looping forever — digest
+    verification then reports the corruption. A round that moves nothing
+    is a fixpoint, so stopping there gives the same bytes as running on."""
+    if n_rounds is not None:
+        for _ in range(int(n_rounds)):
+            ptr = _double_round(ptr)
+        return ptr
+    cap = log2_rounds(ptr.shape[1])
+    moving = bool((ptr >= 0).any())
+    r = 0
+    while moving and r < cap:
+        nxt = _double_round(ptr)
+        moving = bool((nxt != ptr).any())
+        ptr = nxt
+        r += 1
+    return ptr
+
+
+def lz77_decode_blocks_ref(lit_lens, match_lens, offsets, n_cmds, literals,
+                           block_len, out_size: int,
+                           n_rounds: Optional[int] = None) -> torch.Tensor:
+    """(B, C) i32 command planes + (B, L) u8 literals → (B, out_size) u8."""
+    ptr = expand_pointers(lit_lens, match_lens, offsets, n_cmds, block_len,
+                          out_size)
+    ptr = resolve_rounds(ptr, n_rounds)
+    lit_idx = (-ptr - 1).clamp(0, literals.shape[1] - 1)
+    return torch.gather(literals, 1, lit_idx)
+
+
+# ------------------------------------------------------------- rANS decode
+def rans_tables(freqs, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(C, 256) normalized frequencies → device decode tables
+    (freq u16-valued i16 [C, 256], exclusive cum i16 [C, 256], symbol of
+    slot u8 [C, PROB_SCALE]). Built once per archive; both the kernel and
+    the plain version read them."""
+    freqs_np = np.asarray(freqs, np.uint32)
+    cum, sym = build_tables(freqs_np)
+    as_dev = lambda a, dt: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a.astype(dt))).to(device)
+    # PROB_SCALE = 4096 bounds every freq and cum value, so i16 is exact
+    return (as_dev(freqs_np, np.int16), as_dev(cum, np.int16),
+            as_dev(sym, np.uint8))
+
+
+def rans_decode_ref(words: torch.Tensor, word_off: torch.Tensor,
+                    n_syms: torch.Tensor, lanes: torch.Tensor,
+                    class_ids: torch.Tensor, tables, t_max: int,
+                    k_max: int = MAX_LANES
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane-interleaved rANS decode of S streams, in int64 with 32-bit
+    masks (the torch unsigned types lack `>>`, `+` and `<`).
+
+    `words` holds the u16 word buffer as i16 bits. Returns (rows, T):
+    rows is (S, max(t_max, 1) * k_max) u8 where symbol i of stream s is at
+    rows[s, (i // K_s) * k_max + (i % K_s)] — step-major, lane-minor — and
+    every other position is 0; T is the per-stream step count.
+    """
+    freq_t, cum_t, sym_t = (t.long() for t in tables)
+    dev = words.device
+    w = words.long() & 0xFFFF
+    W = w.shape[0]
+    cls = class_ids.long()[:, None]
+    woff = word_off.long()
+    n = n_syms.long()
+    K = lanes.long().clamp(min=1)
+    S = n.shape[0]
+    T = torch.where(n > 0, -(-n // K), 0)
+    steps = max(int(t_max), 1)
+
+    lane = torch.arange(k_max, device=dev)[None, :]
+    lane_ok = lane < K[:, None]
+    st_idx = (woff[:, None] + 2 * torch.minimum(lane, K[:, None] - 1)
+              ).clamp(0, max(W - 2, 0))
+    states = w[st_idx] | (w[st_idx + 1] << 16)
+    data_off = woff + 2 * K
+    cursor = torch.zeros(S, dtype=torch.long, device=dev)
+    out = torch.zeros(S, steps * k_max, dtype=torch.uint8, device=dev)
+    for t in range(int(t_max)):
+        active = lane_ok & (t < T)[:, None]
+        slot = states & (PROB_SCALE - 1)
+        s_t = sym_t[cls, slot]
+        x = (freq_t[cls, s_t] * (states >> PROB_BITS) + slot
+             - cum_t[cls, s_t]) & _M32
+        renorm = active & (x < RANS_L)
+        within = torch.cumsum(renorm.long(), dim=1) - renorm.long()
+        widx = (data_off[:, None] + cursor[:, None] + within).clamp(0, W - 1)
+        x = torch.where(renorm, ((x << 16) | w[widx]) & _M32, x)
+        states = torch.where(active, x, states)
+        cursor = cursor + renorm.sum(dim=1)
+        out[:, t * k_max:(t + 1) * k_max] = torch.where(
+            active, s_t, 0).to(torch.uint8)
+    return out, T.to(torch.int32)

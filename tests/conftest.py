@@ -15,6 +15,10 @@ def pytest_configure(config):
         "slow: long-running sweeps/property tests — skipped by the CI "
         "fast lane (scripts/ci.sh --fast runs -m 'not slow'), always run "
         "by the full lane")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's CUDA "
+        "kernels); skipped without one")
 
 
 @pytest.fixture(scope="session")

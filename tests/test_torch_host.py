@@ -1,0 +1,178 @@
+"""The PyTorch port's own copies of the numpy host modules (format,
+encoder, entropy, depth, index, fastq) against the JAX package's, byte
+for byte; the archive tiling the chip smoke uses; and the port's package
+rules: it imports neither jax nor the JAX package, and its entry points
+refuse to run on the CPU unless asked to."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import depth as rdepth
+from repro.core import encoder as renc
+from repro.core import entropy as rent
+from repro.core import format as rfmt
+from repro.core import index as rindex
+from repro.data.fastq import make_fastq as r_make_fastq
+from repro_torch.core import depth as pdepth
+from repro_torch.core import encoder as penc
+from repro_torch.core import entropy as pent
+from repro_torch.core import format as pfmt
+from repro_torch.core import index as pindex
+from repro_torch.data import tiling
+from repro_torch.data.fastq import make_fastq as p_make_fastq
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+@pytest.mark.parametrize("kind,seed", [("platinum", 1), ("noisy", 2)])
+@pytest.mark.parametrize("block,entropy", [(512, "rans"), (2048, "raw"),
+                                           (16384, "rans"),
+                                           (1024 * 1024, "rans")])
+def test_encode_serialize_byte_identical(kind, seed, block, entropy):
+    data = r_make_fastq(kind, n_reads=150, seed=seed)
+    assert p_make_fastq(kind, n_reads=150, seed=seed) == data
+    want = rfmt.serialize(renc.encode(data, block_size=block,
+                                      entropy=entropy))
+    got = pfmt.serialize(penc.encode(data, block_size=block,
+                                     entropy=entropy))
+    assert got == want
+
+
+def test_deserialize_roundtrip_and_corruption(fastq_noisy):
+    buf = rfmt.serialize(renc.encode(fastq_noisy[:20_000], block_size=2048))
+    a = pfmt.deserialize(buf)
+    assert pfmt.serialize(a) == buf and a.offset_bytes == 2
+    assert a.max_depth == rfmt.deserialize(buf).max_depth
+    with pytest.raises(pfmt.CorruptArchiveError, match="truncated"):
+        pfmt.deserialize(buf[:len(buf) // 2])
+    with pytest.raises(pfmt.CorruptArchiveError, match="magic"):
+        pfmt.deserialize(b"NOTMAGIC" + buf[8:])
+    with pytest.raises(NotImplementedError, match="self-healing"):
+        penc.encode(fastq_noisy[:3000], block_size=2048, parity_group=2)
+
+
+def test_entropy_matches_reference():
+    rng = np.random.default_rng(5)
+    hist = rng.integers(0, 50, 256) * (rng.random(256) < 0.4)
+    np.testing.assert_array_equal(pent.normalize_freqs(hist),
+                                  rent.normalize_freqs(hist))
+    streams = [rng.integers(0, 16, int(n), dtype=np.uint8)
+               for n in rng.integers(0, 3000, 12)]
+    cls = rng.integers(0, 4, 12)
+    freqs = np.stack([rent.normalize_freqs(np.bincount(
+        np.concatenate(streams + [np.arange(16, dtype=np.uint8)]),
+        minlength=256)) for _ in range(4)])
+    want = rent.rans_encode_batch(streams, cls, freqs)
+    got = pent.rans_encode_batch(streams, cls, freqs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    dec = pent.rans_decode_batch_np(got[0], got[1], got[3], got[4], cls,
+                                    freqs)
+    for d, s in zip(dec, streams):
+        np.testing.assert_array_equal(d, s)
+
+
+def test_depth_schedule_matches_reference():
+    rng = np.random.default_rng(9)
+    d = rng.integers(0, 40, 300)
+    np.testing.assert_array_equal(pdepth.scheduled_rounds(d),
+                                  rdepth.scheduled_rounds(d))
+    np.testing.assert_array_equal(pdepth.depth_bucket(d),
+                                  rdepth.depth_bucket(d))
+    assert [pdepth.log2_rounds(n) for n in (1, 512, 16384, 1 << 20)] == \
+        [rdepth.log2_rounds(n) for n in (1, 512, 16384, 1 << 20)]
+
+
+def test_index_matches_reference(fastq_noisy):
+    pi, ri = (pindex.ReadIndex.build(fastq_noisy, 4096),
+              rindex.ReadIndex.build(fastq_noisy, 4096))
+    np.testing.assert_array_equal(pi.starts, ri.starts)
+    assert pindex.parse_fastq_records(fastq_noisy)[1] == \
+        rindex.parse_fastq_records(fastq_noisy)[1]
+    with pytest.raises(ValueError, match="malformed"):
+        pindex.parse_fastq_records(b"@a\nAC\n-\nII\n")
+    # start tables past 2 GiB and 4 GiB split losslessly into i32 pairs
+    starts = np.array([0, 2**31 - 1, 2**31 + 5, 2**32 + 17, 9 * 2**30],
+                      np.uint64)
+    for bs in (16384, 1 << 20):
+        blk, rem = pindex.split_starts(starts, bs)
+        rb, rr = rindex.split_starts(starts, bs)
+        np.testing.assert_array_equal(blk, rb)
+        np.testing.assert_array_equal(rem, rr)
+        assert blk.dtype == rem.dtype == np.int32
+        np.testing.assert_array_equal(
+            blk.astype(np.int64) * bs + rem, starts.astype(np.int64))
+
+
+@pytest.mark.parametrize("tiles", [1, 4])
+def test_tiled_archive_equals_encoding_the_tiled_corpus(tiles):
+    corpus = tiling.aligned_fastq(6, 512, kind="noisy", seed=4)
+    assert len(corpus) == 6 * 512
+    a = penc.encode(corpus, block_size=512)
+    assert pfmt.serialize(tiling.tile_archive(a, tiles)) == \
+        pfmt.serialize(penc.encode(corpus * tiles, block_size=512))
+    idx = pindex.ReadIndex.build(corpus, 512)
+    np.testing.assert_array_equal(
+        tiling.tile_index(idx, tiles, len(corpus)).starts,
+        pindex.ReadIndex.build(corpus * tiles, 512).starts)
+    with pytest.raises(ValueError, match="power of two"):
+        tiling.tile_archive(a, 3)
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (n.name for n in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    sources = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    for path in sources:
+        for m in _imported_modules(path):
+            assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                f"{path}: imports {m}"
+
+
+def test_import_and_fetch_leave_jax_unloaded():
+    code = (
+        "import sys, numpy as np\n"
+        "import repro_torch\n"
+        "from repro_torch.core.encoder import encode\n"
+        "from repro_torch.core.index import ReadIndex\n"
+        "from repro_torch.core.residency import CompressedResidentStore\n"
+        "from repro_torch.data.fastq import make_fastq\n"
+        "data = make_fastq('noisy', n_reads=60, seed=3)\n"
+        "idx = ReadIndex.build(data, 2048)\n"
+        "s = CompressedResidentStore(encode(data, block_size=2048), idx,\n"
+        "                            device='cpu')\n"
+        "out, lens = s.fetch_reads(np.array([0, 7, 59]))\n"
+        "lo, hi, _ = idx.lookup(7)\n"
+        "assert bytes(out[1, :int(lens[1])].numpy()) == data[lo:hi]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""
+
+
+def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch,
+                                                    fastq_noisy):
+    from repro_torch.core.decoder import Decoder
+    from repro_torch.core.residency import CompressedResidentStore
+    a = penc.encode(fastq_noisy[:5000], block_size=2048)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        Decoder(a)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        CompressedResidentStore(a)

@@ -27,16 +27,25 @@ TILES = 512                       # ... and tiled to 8 GiB resident
 CHUNK = 4096                      # decode_all chunk: 64 MiB of output
 SEED = 12
 DEVICE = "cuda"
-# peak rates of one H100 SXM (published data sheet): HBM bytes/s and
-# the non-tensor 32-bit rate, used for the 32-bit integer ALU work here
+# peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
+# issue rate of 32-bit integer instructions, 132 SMs x 4 schedulers x 32
+# lanes x 1.98 GHz boost clock = 33.5e12 lane-ops/s. (The 67e12 used
+# before is the fp32 FLOP rate, which counts each FMA as two operations:
+# an integer instruction is one, so it halved every operations bound.)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
+PEAK_OPS = 132 * 4 * 32 * 1.98e9
 # integer operations per unit of work, counted from the kernel sources
-RANS_OPS_PER_LANE_STEP = 12       # 3 table loads, mul, shift, add, sub,
-                                  # compare, ballot, popc, select, store
-LZ77_OPS_PER_BYTE = 25            # marks, scan, pointer expansion, payout
-LZ77_OPS_PER_BYTE_ROUND = 6       # load, compare, clamp, gather, select,
-                                  # store
+RANS_OPS_PER_LANE_STEP = 10       # slot mask, table load, 2 field
+                                  # extracts, shift, multiply-add, compare,
+                                  # ballot, popc, store
+LZ77_OPS_PER_BYTE = 2             # what LZ77 decode needs: load the
+                                  # byte's source, store the byte
+# what this kernel's algorithm issues, a per-layer note and not its bound
+LZ77_KERNEL_OPS_PER_BYTE = 16     # fill: offset, compare, select, fold,
+                                  # clamp, compare, store; payout: load,
+                                  # negate, clamp, literal load, pack
+LZ77_KERNEL_OPS_PER_BYTE_ROUND = 6  # load, compare, gather, select, store,
+                                    # moved flag
 
 
 def emit(obj) -> None:
@@ -106,25 +115,35 @@ def max_abs_err(a, b) -> int:
 # ------------------------------------------------------------------ phases
 def phase_device():
     import torch
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
+    # the match kernel at the 16 KiB block, with room for twice the
+    # command slots the main path's archive needs (569)
+    occ = ops.lz77_occupancy(BLOCK, BLOCK // 16, DEVICE)
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "ptxas": {k: [ln for ln in v.splitlines() if "Used" in ln]
-                    for k, v in _build.ptxas_info.items()}})
+                    for k, v in _build.ptxas_info.items()},
+          "lz77_match_at_16KiB_1024_cmds": occ})
+    if occ["pointer_bytes"] != 2 or occ["ctas_per_sm"] < 2:
+        fail(f"lz77_match at 16 KiB blocks: {occ}")
     return smi
 
 
 def phase_kernels_vs_plain():
     """Both kernels against their plain versions, byte for byte, at
-    blocks of 512 B, 16 KiB and 1 MiB (4 offset planes), with the
-    archive's rounds, the early-exit resolver and one round short."""
+    blocks of 512 B, 1000 B and 3001 B (rows that are not a multiple of 16
+    or 8 bytes, so the match kernel's per-element rounds and per-byte
+    stores), 16 KiB, 32 KiB (the last 16-bit pointer size) and 1 MiB (4
+    offset planes, i32 pointers in global scratch), for rANS CTAs of 1, 4,
+    8 and 16 blocks, with the archive's rounds, the early-exit resolver and
+    one round short."""
     import torch
     from repro_torch.core import decoder as dec
     from repro_torch.core.encoder import encode
@@ -132,29 +151,31 @@ def phase_kernels_vs_plain():
     from repro_torch.kernels import ops, ref
     cases = []
     for block, n_reads, kind in ((512, 1200, "noisy"),
+                                 (1000, 1200, "noisy"),
+                                 (3001, 1200, "platinum"),
                                  (16 * 1024, 5000, "platinum"),
+                                 (32 * 1024, 5000, "noisy"),
                                  (1024 * 1024, 12000, "platinum")):
         data = make_fastq(kind, n_reads=n_reads, seed=SEED)
         a = encode(data, block_size=block)
         da = dec.to_device(a, DEVICE)
         sel = torch.arange(a.n_blocks, device=DEVICE)
         rin = dec._rans_inputs(da, sel)
-        plain_rows, _ = ref.rans_decode_ref(**rin)
+        plain_rows = ref.rans_decode_streams_ref(**rin)
         rans_err = 0
         for group in (1, 4, 8, 16):
-            rows, _ = ops.rans_decode(**rin, group=group)
+            rows = ops.rans_decode_streams(**rin, group=group)
             sync()
             rans_err = max(rans_err, max_abs_err(rows, plain_rows))
-        streams = dec._entropy_decode_sel(da, sel)
-        m = dec._match_inputs(da, streams, sel)
+        m = dec._match_inputs(da, da.layout.split(plain_rows), sel)
         src = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
         rounds = [a.max_depth, None, max(a.max_depth - 1, 0)]
         lz_err = 0
         for r in rounds:
-            got = ops.lz77_decode_blocks(**m, n_rounds=r)
+            got = ops.lz77_decode_planes(**m, n_rounds=r)
             sync()
             lz_err = max(lz_err, max_abs_err(
-                got, ref.lz77_decode_blocks_ref(**m, n_rounds=r)))
+                got, ref.lz77_decode_planes_ref(**m, n_rounds=r)))
             if r is not None and r == a.max_depth:
                 flat = got.reshape(-1)[:len(data)].cpu()
                 if not torch.equal(flat, src):
@@ -163,10 +184,13 @@ def phase_kernels_vs_plain():
             fail(f"kernel differs from its plain version at block {block}: "
                  f"rans {rans_err}, lz77 {lz_err}")
         cases.append({"block_size": block, "offset_bytes": a.offset_bytes,
-                      "blocks": a.n_blocks, "max_depth": a.max_depth,
+                      "blocks": a.n_blocks, "max_cmds": da.max_cmds,
+                      "max_depth": a.max_depth,
                       "rans_groups": [1, 4, 8, 16], "lz77_rounds": rounds,
                       "rans_max_abs_err": rans_err,
-                      "lz77_max_abs_err": lz_err})
+                      "lz77_max_abs_err": lz_err,
+                      "lz77_config": ops.lz77_occupancy(
+                          block, da.max_cmds, DEVICE)})
     emit({"phase": "kernels_vs_plain", "cases": cases})
     return max(max(c["rans_max_abs_err"], c["lz77_max_abs_err"])
                for c in cases)
@@ -301,50 +325,65 @@ def phase_timing(store):
     beside their plain versions and their bounds."""
     import torch
     from repro_torch.core import decoder as dec
+    from repro_torch.core.format import S_LITERALS
     from repro_torch.kernels import ops, ref
     d = store.decoder
     da = d.da
     sel_np = np.arange(CHUNK)
     sel = torch.arange(CHUNK, device=d.device)
     rin = dec._rans_inputs(da, sel)
-    rows, _ = ops.rans_decode(**rin)
-    plain_rows, _ = ref.rans_decode_ref(**rin)
+    rows = ops.rans_decode_streams(**rin)
+    plain_rows = ref.rans_decode_streams_ref(**rin)
     rans_err = max_abs_err(rows, plain_rows)
-    rans_ms = kernel_ms(lambda: ops.rans_decode(**rin), "rans_decode", 20)
-    rans_call_ms = time_ms(lambda: ops.rans_decode(**rin), 20)
-    rans_plain_ms = time_ms(lambda: ref.rans_decode_ref(**rin), 2)
+    rans_ms = kernel_ms(lambda: ops.rans_decode_streams(**rin),
+                        "rans_decode_kernel", 20)
+    rans_ms_by_group = {g: kernel_ms(
+        lambda: ops.rans_decode_streams(**rin, group=g),
+        "rans_decode_kernel", 5) for g in (1, 4, 8, 16)}
+    rans_call_ms = time_ms(lambda: ops.rans_decode_streams(**rin), 20)
+    rans_plain_ms = time_ms(lambda: ref.rans_decode_streams_ref(**rin), 2)
     a = d.archive
-    woff = a.word_off[sel_np].reshape(-1)
-    lanes = np.maximum(a.lanes[sel_np].reshape(-1).astype(np.int64), 1)
-    nsym = a.n_syms[sel_np].reshape(-1).astype(np.int64)
-    nwords = a.n_words[sel_np].reshape(-1).astype(np.int64)
-    S = woff.size
+    lanes = np.maximum(a.lanes[sel_np].astype(np.int64), 1)
+    nsym = a.n_syms[sel_np].astype(np.int64)
+    nwords = a.n_words[sel_np].astype(np.int64)
+    S = nsym.size
     rans_bytes = (2 * int((2 * lanes + nwords).sum())      # stream words
-                  + S * (8 + 4 + 4 + 4)                    # stream table
-                  + 4 * (256 * 2 * 2 + 4096)               # decode tables
-                  + rows.numel())                          # output rows
-    steps = np.where(nsym > 0, -(-nsym // lanes), 0)
-    rans_ops = RANS_OPS_PER_LANE_STEP * int((steps * lanes).sum())
+                  + S * (8 + 4 + 4)                        # stream table
+                  + 4 * 4096 * 4                           # slot tables
+                  + rows.numel())                          # stream rows
+    widths = np.asarray(da.layout.widths, np.int64)[None, :]
+    n_out = np.minimum(nsym, widths)
+    rans_ops = RANS_OPS_PER_LANE_STEP * int((-(-n_out // lanes) * lanes).sum())
 
     # the chunk's largest depth bucket, at that bucket's rounds
     groups = d._ra_groups(sel_np) or [(da.max_depth, np.arange(CHUNK))]
     rounds, idx = max(groups, key=lambda g: g[1].size)
     gsel = torch.from_numpy(sel_np[idx]).to(d.device)
     m = dec._match_inputs(da, dec._entropy_decode_sel(da, gsel), gsel)
-    got = ops.lz77_decode_blocks(**m, n_rounds=rounds)
-    lz_err = max_abs_err(got, ref.lz77_decode_blocks_ref(**m,
+    got = ops.lz77_decode_planes(**m, n_rounds=rounds)
+    lz_err = max_abs_err(got, ref.lz77_decode_planes_ref(**m,
                                                          n_rounds=rounds))
-    lz_ms = kernel_ms(lambda: ops.lz77_decode_blocks(**m, n_rounds=rounds),
-                      "lz77_decode", 20)
+    lz_ms = kernel_ms(lambda: ops.lz77_decode_planes(**m, n_rounds=rounds),
+                      "lz77_match_kernel", 20)
+    # prologue, fill and payout alone: the same launch with no rounds
+    lz_ms_0_rounds = kernel_ms(
+        lambda: ops.lz77_decode_planes(**m, n_rounds=0),
+        "lz77_match_kernel", 5)
     lz_call_ms = time_ms(
-        lambda: ops.lz77_decode_blocks(**m, n_rounds=rounds), 20)
+        lambda: ops.lz77_decode_planes(**m, n_rounds=rounds), 20)
     lz_plain_ms = time_ms(
-        lambda: ref.lz77_decode_blocks_ref(**m, n_rounds=rounds), 2)
-    B, C = m["lit_lens"].shape
-    lz_bytes = 3 * B * C * 4 + 2 * B * 4 + m["literals"].numel() + got.numel()
+        lambda: ref.lz77_decode_planes_ref(**m, n_rounds=rounds), 2)
+    B = got.shape[0]
+    nc = a.n_cmds[sel_np[idx]].astype(np.int64)
+    lz_bytes = ((4 + da.offset_bytes) * int(nc.sum())      # command planes
+                + int(a.n_syms[sel_np[idx], S_LITERALS].sum())  # literals
+                + 2 * B * 4 + got.numel())                 # table, output
+    lz_ops = LZ77_OPS_PER_BYTE * got.numel()
     depth = a.block_depth[sel_np[idx]].astype(np.int64)
-    lz_ops = da.block_size * int(
-        (LZ77_OPS_PER_BYTE + LZ77_OPS_PER_BYTE_ROUND * depth).sum())
+    lz_kernel_ops = da.block_size * int(
+        (LZ77_KERNEL_OPS_PER_BYTE
+         + LZ77_KERNEL_OPS_PER_BYTE_ROUND * depth).sum())
+    occ = ops.lz77_occupancy(da.block_size, da.max_cmds, DEVICE)
 
     def bound(n_bytes, n_ops):
         b_ms, o_ms = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS * 1e3
@@ -353,14 +392,21 @@ def phase_timing(store):
     out = {}
     for name, ms, call_ms, plain_ms, err, nb, no, shape in (
             ("rans_decode", rans_ms, rans_call_ms, rans_plain_ms, rans_err,
-             rans_bytes, rans_ops, {"streams": S, "t_max": rin["t_max"]}),
+             rans_bytes, rans_ops, {"blocks": CHUNK, "streams": S,
+                                    "row_bytes": da.layout.row,
+                                    "ms_by_group": rans_ms_by_group}),
             ("lz77_match", lz_ms, lz_call_ms, lz_plain_ms, lz_err, lz_bytes,
-             lz_ops, {"blocks": B, "max_cmds": C, "n_rounds": rounds})):
+             lz_ops, {"blocks": B, "max_cmds": da.max_cmds,
+                      "n_rounds": rounds, "ms_at_0_rounds": lz_ms_0_rounds,
+                      "kernel_ops_ms": lz_kernel_ops / PEAK_OPS * 1e3,
+                      "config": occ})):
         b_ms, by = bound(nb, no)
         out[name] = {"ms": ms, "wrapper_call_ms": call_ms,
                      "plain_ms": plain_ms, "max_abs_err": err,
                      "bound_ms": b_ms, "bound_by": by, "bytes": nb,
-                     "ops": no, "library_ms": None, **shape}
+                     "ops": no, "bytes_ms": nb / PEAK_BYTES * 1e3,
+                     "ops_ms": no / PEAK_OPS * 1e3, "library_ms": None,
+                     **shape}
     emit({"phase": "timing", "chunk_blocks": CHUNK, **out})
     if rans_err or lz_err:
         fail("a kernel differs from its plain version at main-path shapes")
@@ -369,7 +415,8 @@ def phase_timing(store):
 
 def phase_profile(store):
     """Device busy time and idle share of one decode chunk and one B=256
-    fetch, and the kernels that take the device time."""
+    fetch, and every kernel that ran on the device: launches and device
+    ms by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 1)
@@ -394,14 +441,17 @@ def phase_profile(store):
         kernels = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                kernels[e.name] = kernels.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-        busy = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+                n, ms = kernels.get(e.name, (0, 0.0))
+                kernels[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        busy = sum(ms for _, ms in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
         result[name] = {"wall_ms": wall_ms, "wall_ms_profiled": wall_prof_ms,
                         "device_busy_ms": busy,
                         "idle_share_profiled": 1 - busy / wall_prof_ms,
-                        "device_ms_by_kernel": [[k[:90], v] for k, v in top]}
+                        "device_launches": sum(n for n, _ in
+                                               kernels.values()),
+                        "launches_ms_by_kernel": [[k[:90], n, ms] for
+                                                  k, (n, ms) in top]}
     emit({"phase": "profile", **result})
 
 

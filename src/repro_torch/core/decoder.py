@@ -20,11 +20,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import depth as dpth
-from repro_torch.core.format import (FNV_OFFSET, MAX_LANES, N_STREAMS,
-                                     S_COMMANDS, S_LENGTHS, S_LITERALS,
-                                     S_OFFSETS, Archive, file_digest)
+from repro_torch.core.format import (FNV_OFFSET, STREAM_NAMES, Archive,
+                                     file_digest)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import rans_tables
+from repro_torch.kernels.ref import StreamLayout, rans_tables, stream_layout
 
 
 class BlockDigestError(ValueError):
@@ -80,14 +79,12 @@ class DeviceArchive:
     n_cmds: torch.Tensor        # i32[n_blocks]
     block_start: torch.Tensor   # i64[n_blocks]
     block_len: torch.Tensor     # i32[n_blocks]
-    tables: tuple               # rANS freq/cum/sym tables (`rans_tables`)
+    tables: tuple               # rANS decode tables (`rans_tables`)
     block_size: int
     n_blocks: int
     raw_size: int
     entropy: str
     max_cmds: int               # padding geometry of the command planes
-    t_max_lit: int              # max rANS steps, literal streams
-    t_max_cmd: int              # max rANS steps, plane streams
     offset_bytes: int
     max_depth: Optional[int] = None       # archive-wide resolve-round bound
     block_depth: Optional[np.ndarray] = None  # host i32 per-block depths
@@ -95,6 +92,12 @@ class DeviceArchive:
     @property
     def device(self) -> torch.device:
         return self.words.device
+
+    @property
+    def layout(self) -> StreamLayout:
+        """Segments of a block's decoded streams in one (B, row) u8 row."""
+        return stream_layout(self.block_size, self.max_cmds,
+                             self.offset_bytes)
 
     @property
     def device_bytes(self) -> int:
@@ -110,11 +113,6 @@ def to_device(a: Archive, device="cuda") -> DeviceArchive:
     if a.mode != "ra":
         raise _not_in_slice('mode="global" (wavefront) decode',
                             "global-wavefront")
-
-    def tmax(cols):
-        n = a.n_syms[:, cols].astype(np.int64)
-        k = np.maximum(a.lanes[:, cols].astype(np.int64), 1)
-        return int(np.where(n > 0, -(-n // k), 0).max(initial=0))
 
     def up(x, dt):
         return torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
@@ -133,8 +131,6 @@ def to_device(a: Archive, device="cuda") -> DeviceArchive:
         raw_size=int(a.raw_size),
         entropy=a.entropy,
         max_cmds=int(a.n_cmds.max(initial=1)),
-        t_max_lit=tmax([S_LITERALS]),
-        t_max_cmd=tmax([S_LENGTHS, S_OFFSETS, S_COMMANDS]),
         offset_bytes=int(a.offset_bytes),
         max_depth=a.max_depth,
         block_depth=(np.asarray(a.block_depth, np.int32)
@@ -143,123 +139,52 @@ def to_device(a: Archive, device="cuda") -> DeviceArchive:
 
 
 # ------------------------------------------------------------ stream extract
-def _linearize(rows: torch.Tensor, n: torch.Tensor, k: torch.Tensor,
-               out_len: int, k_max: int = MAX_LANES) -> torch.Tensor:
-    """rows (B, T*k_max) step-major rANS output → (B, out_len) linear bytes.
-
-    Symbol i lives at (i // K) * k_max + (i % K); i >= n → 0.
-    """
-    i = torch.arange(out_len, device=rows.device)[None, :]
-    k = k.long().clamp(min=1)[:, None]
-    idx = ((i // k) * k_max + (i % k)).clamp(0, rows.shape[1] - 1)
-    vals = torch.gather(rows, 1, idx)
-    return torch.where(i < n.long()[:, None], vals, 0)
-
-
-def _u16_from_planes(planes: torch.Tensor, n_cmds: torch.Tensor,
-                     max_cmds: int) -> torch.Tensor:
-    """planes (B, 2*max_cmds) = [lo plane | hi plane] → (B, max_cmds) i32."""
-    return _planes_le(planes, n_cmds, max_cmds, 2, mask_top=False)
-
-
-def _u32_from_planes(planes: torch.Tensor, n_cmds: torch.Tensor,
-                     max_cmds: int) -> torch.Tensor:
-    """First-4-plane little-endian u32 → (B, max_cmds) i32 with bit 31
-    cleared (device decode addresses stay < 2^31): the block-local offsets
-    of `offset_bytes=4` archives (block_size > 0xFFFF)."""
-    return _planes_le(planes, n_cmds, max_cmds, 4, mask_top=True)
-
-
-def _planes_le(planes: torch.Tensor, n_cmds: torch.Tensor, max_cmds: int,
-               n_planes: int, mask_top: bool) -> torch.Tensor:
-    """Little-endian value of the first `n_planes` byte planes, plane b of
-    command j at column b * n_cmds + j; columns past n_cmds are 0."""
-    nc = n_cmds.long()[:, None]
-    j = torch.arange(max_cmds, device=planes.device)[None, :]
-    p = planes.to(torch.int32)
-    v = torch.zeros((planes.shape[0], max_cmds), dtype=torch.int32,
-                    device=planes.device)
-    for b in range(n_planes):
-        idx = (b * nc + j).clamp(max=planes.shape[1] - 1)
-        byte = torch.gather(p, 1, idx)
-        if b == 3 and mask_top:
-            byte = byte & 0x7F
-        v = v | (byte << (8 * b))
-    return torch.where(j < nc, v, 0)
-
-
 def _rans_inputs(da: DeviceArchive, sel: torch.Tensor) -> dict:
     """Arguments of the rANS kernel for the 4 streams of each selected
-    block (stream index = block-major, stream-minor)."""
-    B = sel.shape[0]
-    return dict(
-        words=da.words, word_off=da.word_off[sel].reshape(-1),
-        n_syms=da.n_syms[sel].reshape(-1), lanes=da.lanes[sel].reshape(-1),
-        class_ids=torch.arange(N_STREAMS, dtype=torch.int32,
-                               device=da.device).repeat(B),
-        tables=da.tables, t_max=max(da.t_max_lit, da.t_max_cmd))
-
-
-def _stream_lens(da: DeviceArchive) -> dict:
-    """Linear width of each stream's decoded bytes."""
-    return {"literals": da.block_size, "lengths": 2 * da.max_cmds,
-            "offsets": da.offset_bytes * da.max_cmds,
-            "commands": 2 * da.max_cmds}
-
-
-_STREAM_COL = {"literals": S_LITERALS, "lengths": S_LENGTHS,
-               "offsets": S_OFFSETS, "commands": S_COMMANDS}
+    block: the selection's (B, 4) stream tables."""
+    return dict(words=da.words, word_off=da.word_off[sel],
+                n_syms=da.n_syms[sel], lanes=da.lanes[sel], tables=da.tables,
+                layout=da.layout)
 
 
 def _entropy_decode_sel(da: DeviceArchive, sel: torch.Tensor) -> dict:
     """rANS/raw decode of the 4 streams of each selected block.
 
-    Returns per-block linearized stream bytes: literals (B, block_size),
-    lengths (B, 2*max_cmds), offsets (B, offset_bytes*max_cmds),
-    commands (B, 2*max_cmds)."""
+    Returns per-block linear stream bytes: literals (B, block_size),
+    lengths (B, 2*max_cmds), offsets (B, offset_bytes*max_cmds), commands
+    (B, 2*max_cmds) — for rANS, column views of the kernel's one
+    (B, layout.row) output."""
+    if da.entropy != "raw":
+        return da.layout.split(ops.rans_decode_streams(**_rans_inputs(da,
+                                                                      sel)))
     nsym = da.n_syms[sel]
-    if da.entropy == "raw":
-        woff = da.word_off[sel]
-        W = da.words.shape[0]
+    woff = da.word_off[sel]
+    W = da.words.shape[0]
 
-        def unpack(col, out_len):
-            nw = (out_len + 1) // 2
-            idx = (woff[:, col, None]
-                   + torch.arange(nw, device=da.device)[None, :]
-                   ).clamp(0, W - 1)
-            w = da.words[idx].to(torch.int32) & 0xFFFF
-            b = torch.stack([w & 0xFF, w >> 8], dim=2).reshape(
-                sel.shape[0], -1)[:, :out_len]
-            i = torch.arange(out_len, device=da.device)[None, :]
-            return torch.where(i < nsym[:, col, None].long(), b,
-                               0).to(torch.uint8)
+    def unpack(col, out_len):
+        nw = (out_len + 1) // 2
+        idx = (woff[:, col, None]
+               + torch.arange(nw, device=da.device)[None, :]).clamp(0, W - 1)
+        w = da.words[idx].to(torch.int32) & 0xFFFF
+        b = torch.stack([w & 0xFF, w >> 8], dim=2).reshape(
+            sel.shape[0], -1)[:, :out_len]
+        i = torch.arange(out_len, device=da.device)[None, :]
+        return torch.where(i < nsym[:, col, None].long(), b,
+                           0).to(torch.uint8)
 
-        return {name: unpack(_STREAM_COL[name], n)
-                for name, n in _stream_lens(da).items()}
-
-    rows, _ = ops.rans_decode(**_rans_inputs(da, sel))
-    rows = rows.reshape(sel.shape[0], N_STREAMS, -1)
-    lanes = da.lanes[sel]
-    return {name: _linearize(rows[:, _STREAM_COL[name]],
-                             nsym[:, _STREAM_COL[name]],
-                             lanes[:, _STREAM_COL[name]], n)
-            for name, n in _stream_lens(da).items()}
+    return {name: unpack(col, n) for col, (name, n) in
+            enumerate(zip(STREAM_NAMES, da.layout.widths))}
 
 
 # ------------------------------------------------------------------- decode
 def _match_inputs(da: DeviceArchive, streams: dict,
                   sel: torch.Tensor) -> dict:
-    """Arguments of the LZ77 match kernel: the command planes decoded to
-    i32 columns, the literal rows and the block geometry."""
-    n_cmds = da.n_cmds[sel]
-    offsets = (_u16_from_planes if da.offset_bytes == 2
-               else _u32_from_planes)(streams["offsets"], n_cmds,
-                                      da.max_cmds)
-    return dict(
-        lit_lens=_u16_from_planes(streams["commands"], n_cmds, da.max_cmds),
-        match_lens=_u16_from_planes(streams["lengths"], n_cmds, da.max_cmds),
-        offsets=offsets, n_cmds=n_cmds, literals=streams["literals"],
-        block_len=da.block_len[sel], out_size=da.block_size)
+    """Arguments of the LZ77 match kernel: the stream bytes as decoded
+    (the kernel reads the command byte planes itself) and the block
+    geometry."""
+    return dict(**streams, n_cmds=da.n_cmds[sel],
+                block_len=da.block_len[sel], out_size=da.block_size,
+                max_cmds=da.max_cmds, offset_bytes=da.offset_bytes)
 
 
 def _decode_sel_core(da: DeviceArchive, sel: torch.Tensor,
@@ -267,7 +192,7 @@ def _decode_sel_core(da: DeviceArchive, sel: torch.Tensor,
     """Mode-2 block-selection decode: one entropy launch, one match launch
     of `n_rounds` resolve rounds (None = early exit). → (B, block_size)."""
     streams = _entropy_decode_sel(da, sel)
-    return ops.lz77_decode_blocks(**_match_inputs(da, streams, sel),
+    return ops.lz77_decode_planes(**_match_inputs(da, streams, sel),
                                   n_rounds=n_rounds)
 
 

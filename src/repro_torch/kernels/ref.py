@@ -2,8 +2,15 @@
 
 These are the oracles the CUDA kernels are held against, and what the
 kernel wrappers in `kernels.ops` run for tensors that live on the CPU.
-They repeat the kernels' arithmetic step for step and are no yardstick
-of speed.
+They compute the kernels' functions from the reference's steps and are
+no yardstick of speed:
+
+  * `rans_decode_streams_ref` = `rans_decode_ref` (step-major rows, the
+    Pallas kernel's output) followed by `linearize` of each stream into
+    its segment of the `StreamLayout` row;
+  * `lz77_decode_planes_ref` = `planes_le` of the command byte planes
+    followed by `lz77_decode_blocks_ref` (i32 command columns, the
+    Pallas kernel's input).
 
 The LZ77 match phase: command expansion is a scatter + cumsum, match
 self-overlap folds via the modulo trick, and cross-command dependencies
@@ -20,19 +27,54 @@ no vmap on this path; the batch dimension is written out).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.depth import log2_rounds
 from repro_torch.core.entropy import build_tables
-from repro_torch.core.format import MAX_LANES, PROB_BITS, PROB_SCALE, RANS_L
+from repro_torch.core.format import (MAX_LANES, N_STREAMS, PROB_BITS,
+                                     PROB_SCALE, RANS_L, STREAM_NAMES)
 
 __all__ = ["log2_rounds", "expand_pointers", "resolve_rounds",
-           "lz77_decode_blocks_ref", "rans_tables", "rans_decode_ref"]
+           "lz77_decode_blocks_ref", "planes_le", "lz77_decode_planes_ref",
+           "StreamLayout", "stream_layout", "linearize", "rans_tables",
+           "rans_decode_ref", "rans_decode_streams_ref"]
 
 _M32 = 0xFFFFFFFF
+
+
+# ------------------------------------------------------------ stream layout
+class StreamLayout(NamedTuple):
+    """Where each decoded stream of a block lies in its (B, row) u8 row:
+    segment c spans [starts[c], starts[c + 1]) and holds up to widths[c]
+    stream bytes, zero after them; starts[4] is the row width, a multiple
+    of 16 so every row starts 16-byte aligned."""
+    starts: Tuple[int, int, int, int, int]
+    widths: Tuple[int, int, int, int]
+
+    @property
+    def row(self) -> int:
+        return self.starts[N_STREAMS]
+
+    def split(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(B, row) stream rows → {stream name: (B, width) column view}."""
+        return {name: rows[:, s:s + w] for name, s, w in
+                zip(STREAM_NAMES, self.starts, self.widths)}
+
+
+def stream_layout(block_size: int, max_cmds: int,
+                  offset_bytes: int) -> StreamLayout:
+    """[literals: block_size | lengths: 2·max_cmds | offsets:
+    offset_bytes·max_cmds | commands: 2·max_cmds], padded to 16 bytes."""
+    widths = (block_size, 2 * max_cmds, offset_bytes * max_cmds,
+              2 * max_cmds)
+    starts = [0]
+    for w in widths:
+        starts.append(starts[-1] + w)
+    starts[-1] = -(-starts[-1] // 16) * 16
+    return StreamLayout(tuple(starts), widths)
 
 
 # --------------------------------------------------------------- LZ77 match
@@ -118,20 +160,63 @@ def lz77_decode_blocks_ref(lit_lens, match_lens, offsets, n_cmds, literals,
     return torch.gather(literals, 1, lit_idx)
 
 
+def planes_le(planes: torch.Tensor, n_cmds: torch.Tensor, max_cmds: int,
+              n_planes: int, mask_top: bool) -> torch.Tensor:
+    """Little-endian value of the first `n_planes` byte planes → (B,
+    max_cmds) i32; plane b of command j sits at column b * n_cmds + j
+    (clamped into the row), columns past n_cmds are 0. `mask_top` clears
+    bit 31 (device decode addresses stay < 2^31)."""
+    nc = n_cmds.long()[:, None]
+    j = torch.arange(max_cmds, device=planes.device)[None, :]
+    p = planes.to(torch.int32)
+    v = torch.zeros((planes.shape[0], max_cmds), dtype=torch.int32,
+                    device=planes.device)
+    for b in range(n_planes):
+        idx = (b * nc + j).clamp(max=planes.shape[1] - 1)
+        byte = torch.gather(p, 1, idx)
+        if b == 3 and mask_top:
+            byte = byte & 0x7F
+        v = v | (byte << (8 * b))
+    return torch.where(j < nc, v, 0)
+
+
+def lz77_decode_planes_ref(literals, lengths, offsets, commands, n_cmds,
+                           block_len, out_size: int, max_cmds: int,
+                           offset_bytes: int,
+                           n_rounds: Optional[int] = None) -> torch.Tensor:
+    """(B, ·) u8 byte planes of the literal-length (`commands`),
+    match-length (`lengths`) and offset streams + (B, L) u8 literals →
+    (B, out_size) u8. The offsets take the first min(4, offset_bytes)
+    planes, bit 31 masked at four."""
+    n_off = min(4, int(offset_bytes))
+    return lz77_decode_blocks_ref(
+        planes_le(commands, n_cmds, max_cmds, 2, False),
+        planes_le(lengths, n_cmds, max_cmds, 2, False),
+        planes_le(offsets, n_cmds, max_cmds, n_off, n_off == 4),
+        n_cmds, literals, block_len, out_size, n_rounds=n_rounds)
+
+
 # ------------------------------------------------------------- rANS decode
-def rans_tables(freqs, device) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
+def rans_tables(freqs, device) -> Tuple[torch.Tensor, ...]:
     """(C, 256) normalized frequencies → device decode tables
     (freq u16-valued i16 [C, 256], exclusive cum i16 [C, 256], symbol of
-    slot u8 [C, PROB_SCALE]). Built once per archive; both the kernel and
-    the plain version read them."""
+    slot u8 [C, PROB_SCALE], and the kernel's packed slot table i32 [C,
+    PROB_SCALE]: sym | (freq[sym] - 1) << 8 | (slot - cum[sym]) << 20).
+    Built once per archive. The plain version reads the first three; the
+    packing is exact because `build_tables` gives every slot a symbol with
+    cum <= slot < cum + freq <= PROB_SCALE."""
     freqs_np = np.asarray(freqs, np.uint32)
     cum, sym = build_tables(freqs_np)
+    rows = np.arange(freqs_np.shape[0])[:, None]
+    slots = (sym.astype(np.uint32)
+             | (freqs_np[rows, sym] - 1) << 8
+             | (np.arange(PROB_SCALE, dtype=np.uint32)[None, :]
+                - cum[rows, sym]) << 20)
     as_dev = lambda a, dt: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a.astype(dt))).to(device)
     # PROB_SCALE = 4096 bounds every freq and cum value, so i16 is exact
     return (as_dev(freqs_np, np.int16), as_dev(cum, np.int16),
-            as_dev(sym, np.uint8))
+            as_dev(sym, np.uint8), as_dev(slots.view(np.int32), np.int32))
 
 
 def rans_decode_ref(words: torch.Tensor, word_off: torch.Tensor,
@@ -147,7 +232,7 @@ def rans_decode_ref(words: torch.Tensor, word_off: torch.Tensor,
     rows[s, (i // K_s) * k_max + (i % K_s)] — step-major, lane-minor — and
     every other position is 0; T is the per-stream step count.
     """
-    freq_t, cum_t, sym_t = (t.long() for t in tables)
+    freq_t, cum_t, sym_t = (t.long() for t in tables[:3])
     dev = words.device
     w = words.long() & 0xFFFF
     W = w.shape[0]
@@ -182,3 +267,41 @@ def rans_decode_ref(words: torch.Tensor, word_off: torch.Tensor,
         out[:, t * k_max:(t + 1) * k_max] = torch.where(
             active, s_t, 0).to(torch.uint8)
     return out, T.to(torch.int32)
+
+
+def linearize(rows: torch.Tensor, n: torch.Tensor, k: torch.Tensor,
+              out_len: int, k_max: int = MAX_LANES) -> torch.Tensor:
+    """rows (B, T*k_max) step-major rANS output → (B, out_len) linear bytes.
+
+    Symbol i lives at (i // K) * k_max + (i % K); i >= n → 0.
+    """
+    i = torch.arange(out_len, device=rows.device)[None, :]
+    k = k.long().clamp(min=1)[:, None]
+    idx = ((i // k) * k_max + (i % k)).clamp(0, rows.shape[1] - 1)
+    vals = torch.gather(rows, 1, idx)
+    return torch.where(i < n.long()[:, None], vals, 0)
+
+
+def rans_decode_streams_ref(words: torch.Tensor, word_off: torch.Tensor,
+                            n_syms: torch.Tensor, lanes: torch.Tensor,
+                            tables, layout: StreamLayout) -> torch.Tensor:
+    """The 4 streams of each of B blocks ((B, 4) stream tables, class =
+    stream column) → (B, layout.row) u8 linear stream rows: stream c's
+    first min(n, widths[c]) symbols at the start of segment c, zeros to
+    the next segment. Lane counts are clamped to [1, MAX_LANES]."""
+    B = word_off.shape[0]
+    dev = words.device
+    K = lanes.clamp(1, MAX_LANES)
+    widths = torch.tensor(layout.widths, device=dev)[None, :]
+    n_out = torch.minimum(n_syms.long().clamp(min=0), widths)
+    steps = -(-n_out // K.long())
+    t_max = int(steps.max()) if B else 0
+    rows, _ = rans_decode_ref(
+        words, word_off.reshape(-1), n_syms.reshape(-1), K.reshape(-1),
+        torch.arange(N_STREAMS, dtype=torch.int32, device=dev).repeat(B),
+        tables, t_max)
+    rows = rows.reshape(B, N_STREAMS, -1)
+    out = torch.zeros((B, layout.row), dtype=torch.uint8, device=dev)
+    for c, (s, w) in enumerate(zip(layout.starts, layout.widths)):
+        out[:, s:s + w] = linearize(rows[:, c], n_syms[:, c], K[:, c], w)
+    return out

@@ -16,6 +16,48 @@ from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
 
+# Malformed command planes of one block, as stored (plane b of command j at
+# column b * n_cmds + j): what the match kernel must decode without a
+# fault, to the plain version's bytes.
+MALFORMED = {
+    # bytes 4..23 copy from 40 (a forward match, distance clamped to 1),
+    # bytes 24..63 from 4 + (k mod 20): 20 -> 40 -> 20 is a pointer cycle
+    "cycle": dict(out=64, blen=64, nc=3, C=3, ob=2,
+                  commands=[4, 0, 0, 0, 0, 0], lengths=[0, 20, 40, 0, 0, 0],
+                  offsets=[0, 40, 4, 0, 0, 0]),
+    # the commands end at byte 15 of a 40-byte block: the tail takes the
+    # empty command slot after them
+    "tail": dict(out=64, blen=40, nc=2, C=3, ob=2,
+                 commands=[5, 0, 0, 0, 0, 0], lengths=[0, 10, 0, 0, 0, 0],
+                 offsets=[0, 0, 0, 0, 0, 0]),
+    # n_cmds past the command slots: high planes clamp into the row and
+    # the last slot's match runs on to the end of the block
+    "overfull": dict(out=64, blen=64, nc=5, C=3, ob=2,
+                     commands=[3, 2, 1, 0, 0, 0], lengths=[0, 4, 30, 0, 0, 0],
+                     offsets=[0, 1, 2, 0, 0, 0]),
+    # a 4-plane offset with every bit set: bit 31 masked, the source lies
+    # far past the block
+    "wide_offset": dict(out=32, blen=28, nc=2, C=2, ob=4,
+                        commands=[8, 0, 0, 0], lengths=[0, 20, 0, 0],
+                        offsets=[0, 255, 0, 255, 0, 255, 0, 255]),
+}
+
+
+def malformed_planes(case: str, device) -> dict:
+    """Arguments of `ops.lz77_decode_planes` for one MALFORMED case."""
+    c = MALFORMED[case]
+
+    def row(v, dtype=torch.uint8):
+        return torch.tensor([v], dtype=dtype, device=device)
+
+    return dict(literals=torch.arange(1, c["out"] + 1, dtype=torch.uint8,
+                                      device=device)[None],
+                lengths=row(c["lengths"]), offsets=row(c["offsets"]),
+                commands=row(c["commands"]),
+                n_cmds=row(c["nc"], torch.int32),
+                block_len=row(c["blen"], torch.int32),
+                out_size=c["out"], max_cmds=c["C"], offset_bytes=c["ob"])
+
 
 @pytest.fixture
 def cuda_device():
@@ -24,25 +66,69 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("block", [512, 2048, 16384])
+@pytest.mark.parametrize("block", [512, 1000, 2048, 3001, 16384, 32768,
+                                   65536])
 def test_kernels_equal_plain_versions(cuda_device, block):
+    """rANS CTA sizes 1/4/8/16; match rounds max_depth / None / one short;
+    16-bit pointers up to 32 KiB, i32 pointers and 4 offset planes at
+    64 KiB; 1000 and 3001 B rows take the match kernel's per-element rounds
+    and per-byte stores."""
     data = make_fastq("noisy", n_reads=300, seed=block)
     a = encode(data, block_size=block)
+    assert a.offset_bytes == (4 if block > 0xFFFF else 2)
     da = dec.to_device(a, cuda_device)
     sel = torch.arange(a.n_blocks, device=cuda_device)
     rin = dec._rans_inputs(da, sel)
-    launches = ops.LAUNCHES["rans_decode"]
-    rows, _ = ops.rans_decode(**rin)
-    assert ops.LAUNCHES["rans_decode"] == launches + 1
-    assert torch.equal(rows, ref.rans_decode_ref(**rin)[0])
-    m = dec._match_inputs(da, dec._entropy_decode_sel(da, sel), sel)
+    want = ref.rans_decode_streams_ref(**rin)
+    for group in (1, 4, 8, 16):
+        launches = ops.LAUNCHES["rans_decode"]
+        rows = ops.rans_decode_streams(**rin, group=group)
+        assert ops.LAUNCHES["rans_decode"] == launches + 1
+        assert torch.equal(rows, want)
+    m = dec._match_inputs(da, da.layout.split(want), sel)
     for n_rounds in (a.max_depth, None, max(a.max_depth - 1, 0)):
-        got = ops.lz77_decode_blocks(**m, n_rounds=n_rounds)
-        assert torch.equal(got, ref.lz77_decode_blocks_ref(
+        got = ops.lz77_decode_planes(**m, n_rounds=n_rounds)
+        assert torch.equal(got, ref.lz77_decode_planes_ref(
             **m, n_rounds=n_rounds))
     src = np.frombuffer(data, np.uint8)
-    flat = ops.lz77_decode_blocks(**m, n_rounds=a.max_depth).cpu().numpy()
+    flat = ops.lz77_decode_planes(**m, n_rounds=a.max_depth).cpu().numpy()
     np.testing.assert_array_equal(flat.reshape(-1)[:src.size], src)
+
+
+def test_raw_entropy_archive(cuda_device):
+    data = make_fastq("platinum", n_reads=200, seed=3)
+    a = encode(data, block_size=2048, entropy="raw")
+    da = dec.to_device(a, cuda_device)
+    sel = torch.arange(a.n_blocks, device=cuda_device)
+    m = dec._match_inputs(da, dec._entropy_decode_sel(da, sel), sel)
+    for n_rounds in (a.max_depth, None, max(a.max_depth - 1, 0)):
+        assert torch.equal(ops.lz77_decode_planes(**m, n_rounds=n_rounds),
+                           ref.lz77_decode_planes_ref(**m, n_rounds=n_rounds))
+    rows = dec.Decoder(a, device=cuda_device).decode_blocks(
+        np.arange(a.n_blocks))
+    assert rows.cpu().numpy().reshape(-1)[:len(data)].tobytes() == data
+
+
+@pytest.mark.parametrize("case", sorted(MALFORMED))
+def test_malformed_planes_decode_without_fault(cuda_device, case):
+    args = malformed_planes(case, cuda_device)
+    for n_rounds in (None, 0, 3):
+        got = ops.lz77_decode_planes(**args, n_rounds=n_rounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.lz77_decode_planes_ref(
+            **args, n_rounds=n_rounds))
+
+
+def test_mode2_decode_launches_once_per_bucket(cuda_device):
+    data = make_fastq("platinum", n_reads=200, seed=4)
+    d = dec.Decoder(encode(data, block_size=2048), device=cuda_device)
+    before = dict(ops.LAUNCHES)
+    rows = d.decode_blocks(np.arange(8), verify=True)
+    buckets = len(d.launch_rounds_last)
+    assert buckets >= 1
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "rans_decode": buckets, "lz77_match": buckets}
+    assert rows.cpu().numpy().reshape(-1).tobytes() == data[:8 * 2048]
 
 
 def test_decoder_and_store_on_the_card(cuda_device):

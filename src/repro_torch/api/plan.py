@@ -6,9 +6,9 @@ fast path computes the covering set from the device start table), and
 `covering_blocks` below is its host mirror — change one, change both.
 
 A `DecodePlan` is the lowered form of a query batch: absolute byte spans,
-padded batch/output geometry, and — lazily, for the staged path — the
-unique covering-block selection plus the ragged row map the gather
-consumes.
+padded batch/output geometry, and — lazily, for the staged cache/Mode-1/
+anchored paths — the unique covering-block selection plus the ragged row
+map the gather consumes. A `CachePlan` is its cache step.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.api.address import Address, ByteRange, Region, normalize
+from repro_torch.api.address import (Address, ByteRange, NameTable, ReadId,
+                                     Region, normalize)
 
 
 def span_coords(starts: np.ndarray, lengths: np.ndarray, block_size: int
@@ -45,6 +46,38 @@ def covering_blocks(starts: np.ndarray, lengths: np.ndarray, block_size: int,
     cover = np.where(cover < end_blk[:, None], cover, b0[:, None])
     cover = np.clip(cover, 0, n_blocks - 1)
     return b0, r0, end_blk, cover
+
+
+def anchor_floor(blocks: np.ndarray, anchors: np.ndarray) -> np.ndarray:
+    """Per-block governing anchor: the greatest anchor block id <= block.
+    `anchors` is the archive's sorted anchor table (anchors[0] == 0);
+    empty → everything falls to block 0 (whole-prefix semantics)."""
+    blocks = np.asarray(blocks, np.int64)
+    anchors = np.asarray(anchors, np.int64)
+    if anchors.size == 0:
+        return np.zeros(blocks.shape, np.int64)
+    i = np.searchsorted(anchors, blocks, side="right") - 1
+    return anchors[np.maximum(i, 0)]
+
+
+def anchor_window_groups(sel: np.ndarray, anchors: np.ndarray) -> list:
+    """Partition a block selection by governing anchor window.
+
+    Returns [(win_first, win_last, idx)] where `idx` are positions into
+    `sel` (original order kept within a group), `win_first` is the
+    group's anchor and `win_last` its highest selected block — the window
+    [win_first, win_last] is what a checkpointed-wavefront decode
+    materializes for that group. Empty `anchors` yields one group rooted
+    at block 0."""
+    sel = np.asarray(sel, np.int64).reshape(-1)
+    if sel.size == 0:
+        return []
+    gov = anchor_floor(sel, anchors)
+    groups = []
+    for a in np.unique(gov):
+        idx = np.flatnonzero(gov == a)
+        groups.append((int(a), int(sel[idx].max()), idx))
+    return groups
 
 
 def pad_pow2_spans(starts: np.ndarray, lengths: np.ndarray
@@ -109,6 +142,19 @@ class DecodePlan:
             self._cover = (b0, r0, end_blk, uniq, row_map)
         return self._cover
 
+    def anchor_windows(self, anchors: np.ndarray) -> list:
+        """This plan's covering set grouped by governing anchor window:
+        [(win_first, win_last, idx-into-uniq)]. A checkpointed-wavefront
+        execution decodes sum(win_last - win_first + 1) blocks."""
+        _, _, _, uniq, _ = self.host_cover()
+        return anchor_window_groups(uniq, anchors)
+
+    def anchor_decode_blocks(self, anchors: np.ndarray) -> int:
+        """Blocks a global decode of this plan touches: the summed anchor
+        windows (one window rooted at block 0 when `anchors` is empty)."""
+        return sum(last - first + 1
+                   for first, last, _ in self.anchor_windows(anchors))
+
     # ---------------------------------------------------------- depth groups
     def depth_groups(self) -> Optional[list]:
         """The plan's unique covering set partitioned by scheduled resolve
@@ -130,16 +176,51 @@ class DecodePlan:
         return int(self.block_rounds[uniq].max(initial=0))
 
 
+@dataclasses.dataclass
+class CachePlan:
+    """The cache step of a DecodePlan: its unique covering set split into
+    cache-resident hits and a miss set, with the slots the admitted
+    misses install into. Produced by `BlockCache.plan`
+    (`repro_torch.api.cache`) with vectorized numpy and consumed by one
+    decode call over the pow2-padded miss set plus one install/gather."""
+    uniq: np.ndarray            # i64[U] unique covering block ids
+    src_is_miss: np.ndarray     # bool[U]: row comes from the miss decode
+    src_idx: np.ndarray         # i32[U]: cache slot (hit) | miss row (miss)
+    miss_blocks: np.ndarray     # i64[M] blocks needing decode
+    install_slots: np.ndarray   # i32[M]: slot per miss; == capacity when
+                                # the policy did not admit the block
+    n_hits: int
+    n_misses: int
+    n_installed: int
+    n_evicted: int
+    miss_groups: Optional[list] = None  # [(n_rounds, idx-into-miss_blocks)]
+                                # ascending — the miss set by scheduled
+                                # resolve rounds (None = legacy archive)
+
+    @property
+    def n_uniq(self) -> int:
+        return int(self.uniq.size)
+
+
+def split_cache_hits(uniq: np.ndarray, slot_of: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized hit/miss split of a covering set against a block-id →
+    slot map (-1 = absent): returns (hit_mask bool[U], slots i32[U])."""
+    slots = slot_of[np.asarray(uniq, np.int64)]
+    return slots >= 0, slots
+
+
 class QueryPlanner:
-    """Lowers a batch of read-id and byte-range addresses to one DecodePlan.
+    """Lowers any batch of addresses to a single DecodePlan.
 
     Works over a `CompressedResidentStore` (or the bare-decoder adapter in
-    `repro_torch.api.executors`). Region addresses need the name table,
-    which comes with a later slice of the port.
+    `repro_torch.api.executors`); Region addresses additionally need a
+    `NameTable`.
     """
 
-    def __init__(self, store):
+    def __init__(self, store, name_table: Optional[NameTable] = None):
         self.store = store
+        self.name_table = name_table
         da = store.decoder.da
         self.block_size = da.block_size
         self.n_blocks = da.n_blocks
@@ -230,9 +311,38 @@ class QueryPlanner:
     # -------------------------------------------------------------- general
     def resolve(self, addrs: Sequence[Address]
                 ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-        """Read-id and byte-range addresses → (starts i64[B], lengths
-        i64[B], whole-record ids or None)."""
-        typed = [normalize(a) for a in addrs]
+        """Addresses → (starts i64[B], lengths i64[B], whole-record ids or
+        None). Region names resolve through the device name table in at
+        most two batched lookups (a full-string pre-pass, then only the
+        parse-produced names). Strings follow samtools precedence: the FULL
+        string is tried as a record name first, so Illumina-style names
+        ending in numeric `:x:y` fields resolve whole-record before any
+        `:start-end` suffix is read as coordinates."""
+        typed = list(addrs)
+        rid_at = {}                    # address index → resolved read id
+        strs = [(i, a.encode() if isinstance(a, str) else bytes(a))
+                for i, a in enumerate(typed)
+                if isinstance(a, (str, bytes))]
+        if strs and self.name_table is not None:
+            hit = self.name_table.lookup([s for _, s in strs],
+                                         missing_ok=True)
+            for (i, s), rid in zip(strs, hit):
+                if rid >= 0:           # full-string name hit: keep the id
+                    typed[i] = Region(s)
+                    rid_at[i] = int(rid)
+                else:
+                    typed[i] = normalize(s)
+        typed = [normalize(a) for a in typed]
+        pending = [(i, a) for i, a in enumerate(typed)
+                   if isinstance(a, Region) and i not in rid_at]
+        if pending:
+            if self.name_table is None:
+                raise ValueError(
+                    "Region addresses require a NameTable (build the "
+                    "archive with names, e.g. GenomicArchive.from_bytes)")
+            looked = self.name_table.lookup([a.name for _, a in pending])
+            rid_at.update((i, int(r)) for (i, _), r in zip(pending, looked))
+
         starts64 = self.store._starts64
         idx = self.store.index
         starts = np.zeros(len(typed), np.int64)
@@ -240,10 +350,6 @@ class QueryPlanner:
         ids = np.zeros(len(typed), np.int64)
         whole = True
         for i, a in enumerate(typed):
-            if isinstance(a, Region):
-                raise NotImplementedError(
-                    "Region addresses need the device name table, which "
-                    "comes with a later slice of the PyTorch port")
             if isinstance(a, ByteRange):
                 if not 0 <= a.lo <= a.hi <= self.raw_size:
                     raise IndexError(
@@ -252,21 +358,33 @@ class QueryPlanner:
                 starts[i], lengths[i] = a.lo, a.hi - a.lo
                 whole = False
                 continue
-            if idx is None:
-                raise ValueError("read-id addresses require a ReadIndex")
-            if not 0 <= a.i < idx.n_reads:
+            if isinstance(a, ReadId):
+                if idx is None:
+                    raise ValueError("read-id addresses require a ReadIndex")
+                if not 0 <= a.i < idx.n_reads:
+                    raise IndexError(
+                        f"read id {a.i} out of range [0, {idx.n_reads})")
+                rid = a.i
+                lo, hi = 0, None
+            else:                                   # Region
+                rid = rid_at[i]
+                lo, hi = a.start or 0, a.end
+            s, e = int(starts64[rid]), int(starts64[rid + 1])
+            if hi is None:
+                hi = e - s
+            if not 0 <= lo <= hi <= e - s:
                 raise IndexError(
-                    f"read id {a.i} out of range [0, {idx.n_reads})")
-            s, e = int(starts64[a.i]), int(starts64[a.i + 1])
-            starts[i], lengths[i] = s, e - s
-            ids[i] = a.i
+                    f"region [{lo}, {hi}) outside record {rid} "
+                    f"({e - s} bytes)")
+            starts[i], lengths[i] = s + lo, hi - lo
+            ids[i] = rid
+            whole = whole and lo == 0 and hi == e - s
         return starts, lengths, (ids if whole and typed else None)
 
     def plan(self, addrs: Sequence[Address]) -> DecodePlan:
-        """The general entry: any mix of read ids and byte ranges → one
-        DecodePlan. Pure whole-record batches keep the device start-table
-        fast path; span batches quantize the padded width to a block
-        multiple."""
+        """The general entry: any mix of addresses → one DecodePlan. Pure
+        whole-record batches keep the device start-table fast path; span
+        batches quantize the padded width to a block multiple."""
         if isinstance(addrs, np.ndarray) and addrs.dtype.kind in "iu":
             return self.plan_read_ids(addrs)
         starts, lengths, ids = self.resolve(addrs)

@@ -17,19 +17,23 @@ ONE pipeline:
 entirely on the device. `fetch_read` (single read), `fetch_block_range`
 and `fetch_records` (fixed-size records) are views over the same
 pipeline, lowered through the query plane (`QueryPlanner` →
-`DeviceExecutor`). The decoded-block cache and mesh-partitioned
-residency come with later slices of the port.
+`DeviceExecutor`). An optional decoded-block cache
+(`repro_torch.api.cache.BlockCache`: a preallocated device buffer +
+CachePlan hit/miss split, pluggable policies) makes hot blocks skip
+re-decode across calls. Mesh-partitioned residency comes with a later
+slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.decoder import (Decoder, DeviceArchive, _decode_sel_core,
-                                      _not_in_slice, check_on_error)
+                                      _decode_window_core, _pad_pow2,
+                                      check_on_error)
 from repro_torch.core.format import Archive
 from repro_torch.core.index import ReadIndex, split_starts
 
@@ -46,18 +50,31 @@ class ResidencyStats:
 
 
 # --------------------------------------------------------------- device core
+# elements of the gather's index per pass: bounds the int64 index (and
+# the mask) of a large gather, such as a streaming chunk, to 128 MiB
+_GATHER_SLAB = 1 << 24
+
+
 def _gather_reads_core(rows: torch.Tensor, row_map: torch.Tensor,
                        local: torch.Tensor, lengths: torch.Tensor,
                        block_size: int, max_len: int) -> torch.Tensor:
     """(U, block_size) decoded rows + per-read covering-row map → padded
     (B, max_len) u8. The ragged gather: each read pulls its bytes out of
-    its covering rows at its in-block offset; beyond-length tail is 0."""
+    its covering rows at its in-block offset; beyond-length tail is 0.
+    Columns go in slabs of at most `_GATHER_SLAB` elements, so the index
+    of a chunk-sized gather never outgrows the chunk."""
     B, span = row_map.shape
     flat = rows[row_map.long()].reshape(B, span * block_size)
-    j = torch.arange(max_len, device=rows.device)[None, :]
-    cols = (local.long()[:, None] + j).clamp(max=span * block_size - 1)
-    out = torch.gather(flat, 1, cols)
-    return torch.where(j < lengths.long()[:, None], out, 0)
+    out = torch.empty((B, max_len), dtype=torch.uint8, device=rows.device)
+    local, lengths = local.long()[:, None], lengths.long()[:, None]
+    step = max(1, _GATHER_SLAB // max(B, 1))
+    for c0 in range(0, max_len, step):
+        j = torch.arange(c0, min(c0 + step, max_len),
+                         device=rows.device)[None, :]
+        cols = (local + j).clamp(max=span * block_size - 1)
+        out[:, c0:c0 + j.shape[1]] = torch.where(
+            j < lengths, torch.gather(flat, 1, cols), 0)
+    return out
 
 
 def _fetch_dev_core(da: DeviceArchive, b0: torch.Tensor, local: torch.Tensor,
@@ -69,7 +86,9 @@ def _fetch_dev_core(da: DeviceArchive, b0: torch.Tensor, local: torch.Tensor,
 
     The reference pads the unique set to a static bound so a jitted trace
     sees one shape; eager PyTorch has no trace to bound, so exactly the
-    unique covering blocks decode."""
+    unique covering blocks decode. Anchor-free global archives decode the
+    whole prefix, as the reference's fused path does (anchored ones take
+    the staged path, window by window)."""
     block_size, n_blocks, max_len, max_span = geom
     b0 = b0.long()
     blocks = b0[:, None] + torch.arange(max_span, device=b0.device)[None, :]
@@ -78,7 +97,10 @@ def _fetch_dev_core(da: DeviceArchive, b0: torch.Tensor, local: torch.Tensor,
     blocks = torch.where(blocks < end_blk.long()[:, None], blocks,
                          b0[:, None]).clamp(0, n_blocks - 1)
     uniq, inv = torch.unique(blocks.reshape(-1), return_inverse=True)
-    rows = _decode_sel_core(da, uniq, da.max_depth)
+    if da.mode == "global":
+        rows = _decode_window_core(da, 0, n_blocks - 1, da.max_depth)[uniq]
+    else:
+        rows = _decode_sel_core(da, uniq, da.max_depth)
     row_map = inv.reshape(b0.shape[0], max_span)
     return _gather_reads_core(rows, row_map, local, lengths, block_size,
                               max_len)
@@ -104,22 +126,35 @@ class CompressedResidentStore:
     """Archive + index resident on the device; decode-on-demand reads.
 
     `device` defaults to the card ("cuda"); without one the constructor
-    raises. `verify=True` digest-checks every decoded block (the staged
-    path), raising `BlockDigestError` on a mismatch.
+    raises. `cache_blocks > 0` enables the device-resident decoded-block
+    cache (`repro_torch.api.cache.BlockCache`): hot blocks skip re-decode
+    across fetch calls, misses decode in one pow2-padded call, and
+    decoded bytes never leave the device. `cache_policy` selects
+    eviction/admission: "lru", "freq", "tinylfu" or an `EvictionPolicy`
+    instance. Mode 1 fetches (`mode2=False`) run the staged path.
+    `verify=True` digest-checks every decoded block (the staged path),
+    raising `BlockDigestError` on a mismatch.
     """
 
     def __init__(self, archive: Archive, index: Optional[ReadIndex] = None,
-                 device="cuda", cache_blocks: int = 0, verify: bool = False,
-                 on_error: str = "raise"):
-        if cache_blocks:
-            raise _not_in_slice("the decoded-block cache (cache_blocks > 0)",
-                                "block-cache")
+                 device="cuda", cache_blocks: int = 0,
+                 cache_policy: Union[str, object] = "lru",
+                 verify: bool = False, on_error: str = "raise"):
         self.on_error = check_on_error(on_error)
         self.decoder = Decoder(archive, device=device)
         self.device = self.decoder.device
         self.index = index
         self.block_size = archive.block_size
         self.verify = bool(verify)
+        self._cache_cap = int(cache_blocks)
+        if self._cache_cap > 0:
+            from repro_torch.api.cache import BlockCache
+            self._cache = BlockCache(self._cache_cap, self.block_size,
+                                     archive.n_blocks, policy=cache_policy,
+                                     block_rounds=self.decoder.block_rounds,
+                                     device=self.device)
+        else:
+            self._cache = None
         if index is not None:
             blk, rem = split_starts(index.starts, self.block_size)
             self._starts_blk = torch.from_numpy(blk).to(self.device)
@@ -153,6 +188,58 @@ class CompressedResidentStore:
             n_blocks=self.decoder.da.n_blocks,
         )
 
+    @property
+    def cache_hits(self) -> int:
+        return self._cache.hits if self._cache is not None else 0
+
+    @property
+    def cache_misses(self) -> int:
+        return self._cache.misses if self._cache is not None else 0
+
+    def cache_info(self) -> dict:
+        if self._cache is None:
+            # the keys of BlockCache.info(), all zero — callers read the
+            # counters without checking whether the cache is on
+            return {"capacity": 0, "resident": 0, "hits": 0, "misses": 0,
+                    "evictions": 0, "installs": 0, "coinstalls": 0,
+                    "bytes_resident": 0, "buffer_bytes": 0,
+                    "decode_launches": 0, "policy": "off"}
+        return self._cache.info()
+
+    def _rows_for_blocks(self, uniq: np.ndarray, mode2: bool,
+                         verify: bool = False,
+                         on_error: str = "raise") -> torch.Tensor:
+        """(U,) unique block ids → (U, block_size) decoded rows, through the
+        device-resident block cache when enabled; `verify` digest-checks
+        the rows inside the decode."""
+        dec = self.decoder
+        base = (dec.decode_blocks if mode2
+                else dec.decode_blocks_host_entropy)
+
+        def decode(sel):
+            return base(sel, verify=verify, on_error=on_error)
+
+        if self._cache is None:
+            return decode(_pad_pow2(uniq))[:uniq.size]
+        if dec.da.mode != "global":
+            return self._cache.rows_for(uniq, decode)
+        # global: a miss decode materializes whole anchor windows — the
+        # window rows the CachePlan did not ask for co-install into free
+        # slots, so a scan over the window is ONE decode. Collection is
+        # opt-in (holding decoded windows costs device memory) and always
+        # cleared before returning.
+        dec.collect_window_rows = True
+        dec.last_window_rows = []
+        try:
+            rows = self._cache.rows_for(uniq, decode)
+            for first, wrows in dec.last_window_rows:
+                self._cache.install_extras(
+                    np.arange(first, first + wrows.shape[0]), wrows)
+        finally:
+            dec.collect_window_rows = False
+            dec.last_window_rows = []
+        return rows
+
     # -------------------------------------------------------------- lookups
     def fetch_reads(self, ids: Sequence[int], mode2: bool = True,
                     verify: Optional[bool] = None,
@@ -162,7 +249,8 @@ class CompressedResidentStore:
 
         (B,) read ids → ((B, max_read_len) u8 zero-padded reads,
         (B,) i32 lengths), both on the device, in one selection decode.
-        Requires a ReadIndex."""
+        Requires a ReadIndex. `verify`/`on_error` override the store
+        defaults for this call."""
         if self.index is None:
             raise ValueError("fetch_reads requires a ReadIndex")
         ids_np = np.asarray(ids, np.int64).reshape(-1)

@@ -22,6 +22,11 @@ resolve with pointer doubling. Resolution rounds come in two flavours:
     pointer moved, capped at `log2_rounds(out_size)` so a malformed
     archive whose pointers form a cycle cannot hang the decode.
 
+`lz77_decode_global_ref` resolves a contiguous global (wavefront) window
+in one flat pointer space. It is no kernel's plain version: the
+reference resolves global windows in plain array code on every backend,
+and the port does the same on the CPU and the card.
+
 All functions are batched over a leading block/stream axis (PyTorch has
 no vmap on this path; the batch dimension is written out).
 """
@@ -38,7 +43,8 @@ from repro_torch.core.format import (MAX_LANES, N_STREAMS, PROB_BITS,
                                      PROB_SCALE, RANS_L, STREAM_NAMES)
 
 __all__ = ["log2_rounds", "expand_pointers", "resolve_rounds",
-           "lz77_decode_blocks_ref", "planes_le", "lz77_decode_planes_ref",
+           "lz77_decode_blocks_ref", "lz77_decode_global_ref", "planes_le",
+           "lz77_decode_planes_ref",
            "StreamLayout", "stream_layout", "linearize", "rans_tables",
            "rans_decode_ref", "rans_decode_streams_ref"]
 
@@ -80,12 +86,17 @@ def stream_layout(block_size: int, max_cmds: int,
 # --------------------------------------------------------------- LZ77 match
 def expand_pointers(lit_lens: torch.Tensor, match_lens: torch.Tensor,
                     offsets: torch.Tensor, n_cmds: torch.Tensor,
-                    block_len: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Per-output-byte source pointers for a batch of self-contained blocks.
+                    block_len: torch.Tensor, out_size: int,
+                    base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-output-byte source pointers for a batch of blocks.
 
-    (B, C) command planes with block-local offsets → i64[B, out_size]:
-    ptr >= 0 copies from output position ptr; ptr < 0 is literal index
-    -(ptr + 1). Bytes >= block_len get literal 0 (ptr = -1).
+    `offsets` and the returned match pointers live in the coordinate space
+    `base + local`: no `base` with block-local offsets ("ra" blocks), or
+    the blocks' (B,) starts with window-relative offsets (global mode).
+
+    (B, C) command planes → i64[B, out_size]: ptr >= 0 copies from
+    position ptr; ptr < 0 is literal index -(ptr + 1). Bytes >= block_len
+    get literal 0 (ptr = -1).
     """
     B, C = lit_lens.shape
     dev = lit_lens.device
@@ -113,8 +124,11 @@ def expand_pointers(lit_lens: torch.Tensor, match_lens: torch.Tensor,
     rel = i - P_c
     is_lit = rel < ll_c
     lit_idx = torch.gather(cum_lit, 1, cmd_of) + rel
-    # match source with self-overlap folding
-    d = (P_c + ll_c - off_c).clamp(min=1)           # distance >= 1
+    # match source with self-overlap folding (dest start in `base` coords)
+    mstart = P_c + ll_c
+    if base is not None:
+        mstart = mstart + base.long()[:, None]
+    d = (mstart - off_c).clamp(min=1)               # distance >= 1
     mptr = off_c + torch.remainder(rel - ll_c, d)
     ptr = torch.where(is_lit, -(lit_idx + 1), mptr)
     return torch.where(i < block_len.long()[:, None], ptr, -1)
@@ -160,16 +174,63 @@ def lz77_decode_blocks_ref(lit_lens, match_lens, offsets, n_cmds, literals,
     return torch.gather(literals, 1, lit_idx)
 
 
+# elements per slab of the global resolve's pointer expansion (2 Mi: each
+# of a slab's i64 temporaries stays at 16 MiB)
+EXPAND_SLAB = 1 << 21
+
+
+def lz77_decode_global_ref(lit_lens, match_lens, offsets, n_cmds, literals,
+                           lit_base, block_start, block_len, out_size: int,
+                           total_size: int,
+                           n_rounds: Optional[int] = None) -> torch.Tensor:
+    """Wavefront decode of a contiguous global window: every block's
+    pointers in one flat (total_size,) output space, so chains may cross
+    blocks. `offsets` and `block_start` are window-relative; `literals`
+    is (B, L) u8 and `lit_base` the (B,) flat literal index of each row's
+    first literal. `n_rounds` doubling rounds over the whole window (None
+    = early exit). → (total_size,) u8.
+
+    Not the plain version of a kernel: the reference resolves global
+    windows in plain array code on every backend, and so does the port."""
+    B = lit_lens.shape[0]
+    dev = lit_lens.device
+    bstart = block_start.long()
+    i = torch.arange(out_size, device=dev)[None, :]
+    flat = torch.full((total_size,), -1, dtype=torch.long, device=dev)
+    # pointers expand in slabs of rows: the expansion's dozen (rows,
+    # out_size) i64 temporaries then stay a slab's size, not the window's
+    step = max(1, EXPAND_SLAB // max(out_size, 1))
+    for lo in range(0, B, step):
+        rs = slice(lo, lo + step)
+        ptr = expand_pointers(lit_lens[rs], match_lens[rs], offsets[rs],
+                              n_cmds[rs], block_len[rs], out_size,
+                              base=bstart[rs])
+        # match pointers are window positions already; literal indices
+        # shift by the row's flat literal base
+        is_lit = ptr < 0
+        gl = (-(torch.where(is_lit, ptr, -1) + 1)
+              + lit_base[rs].long()[:, None])
+        gptr = torch.where(is_lit, -(gl + 1), ptr)
+        keep = i < block_len[rs].long()[:, None]
+        pos = (bstart[rs, None] + i)[keep]
+        inside = (pos >= 0) & (pos < total_size)
+        flat[pos[inside]] = gptr[keep][inside]
+    flat = resolve_rounds(flat[None, :], n_rounds)[0]
+    lit_flat = literals.reshape(-1)
+    return lit_flat[(-flat - 1).clamp(0, lit_flat.shape[0] - 1)]
+
+
 def planes_le(planes: torch.Tensor, n_cmds: torch.Tensor, max_cmds: int,
               n_planes: int, mask_top: bool) -> torch.Tensor:
     """Little-endian value of the first `n_planes` byte planes → (B,
-    max_cmds) i32; plane b of command j sits at column b * n_cmds + j
+    max_cmds) i64; plane b of command j sits at column b * n_cmds + j
     (clamped into the row), columns past n_cmds are 0. `mask_top` clears
-    bit 31 (device decode addresses stay < 2^31)."""
+    bit 31 (device decode addresses stay < 2^31); without it four planes
+    give the full low 32 bits, unsigned."""
     nc = n_cmds.long()[:, None]
     j = torch.arange(max_cmds, device=planes.device)[None, :]
-    p = planes.to(torch.int32)
-    v = torch.zeros((planes.shape[0], max_cmds), dtype=torch.int32,
+    p = planes.long()
+    v = torch.zeros((planes.shape[0], max_cmds), dtype=torch.long,
                     device=planes.device)
     for b in range(n_planes):
         idx = (b * nc + j).clamp(max=planes.shape[1] - 1)

@@ -145,3 +145,129 @@ def test_decoder_and_store_on_the_card(cuda_device):
     for i, r in enumerate(ids):
         lo, hi, _ = idx.lookup(int(r))
         assert bytes(out[i, :int(lens[i])].cpu().numpy()) == data[lo:hi]
+
+
+# --------------------------------------------------- the query-plane slice
+def _same_decoders(gpu, cpu, fn, *args):
+    g = getattr(gpu, fn)(*args)
+    c = getattr(cpu, fn)(*args)
+    assert g.is_cuda and torch.equal(g.cpu(), c)
+    assert gpu.decoded_blocks_last == cpu.decoded_blocks_last
+    assert gpu.launch_rounds_last == cpu.launch_rounds_last
+    return g
+
+
+def test_global_window_decode_on_the_card(cuda_device):
+    """Anchored global windows on the card equal the port on the CPU: the
+    rANS kernel once per window (8 offset planes), the resolve in plain
+    PyTorch, no match-kernel launch; Mode 1 uploads host streams."""
+    data = make_fastq("platinum", n_reads=300, seed=6)
+    a = encode(data, block_size=2048, mode="global", anchor_interval=4)
+    assert a.offset_bytes == 8
+    gpu = dec.Decoder(a, device=cuda_device)
+    cpu = dec.Decoder(a, device="cpu")
+    sel = np.array([a.n_blocks - 1, 2, 7, 2])
+    before = dict(ops.LAUNCHES)
+    _same_decoders(gpu, cpu, "decode_blocks", sel)
+    windows = len(gpu.launch_rounds_last)
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "rans_decode": windows, "lz77_match": 0}
+    before = dict(ops.LAUNCHES)
+    _same_decoders(gpu, cpu, "decode_blocks_host_entropy", sel)
+    assert ops.LAUNCHES == before
+    rows = _same_decoders(gpu, cpu, "decode_from_anchor", 5, 9)
+    assert rows.cpu().numpy().reshape(-1).tobytes() == \
+        data[5 * 2048:10 * 2048]
+    assert gpu.decode_all(chunk_blocks=7).tobytes() == data
+
+
+@pytest.mark.parametrize("interval", [4, 0])
+def test_global_origin_wraparound_on_the_card(cuda_device, interval):
+    """An archive placed across 2^32: the window rebase wraps modulo 2^32
+    in int64 on the card exactly as on the CPU."""
+    data = make_fastq("noisy", n_reads=200, seed=7)
+    a = encode(data, block_size=2048, mode="global",
+               anchor_interval=interval, origin=2**32 - 2**13 + 17)
+    gpu = dec.Decoder(a, device=cuda_device)
+    cpu = dec.Decoder(a, device="cpu")
+    rows = _same_decoders(gpu, cpu, "decode_blocks", np.arange(a.n_blocks))
+    assert rows.cpu().numpy().reshape(-1)[:len(data)].tobytes() == data
+    _same_decoders(gpu, cpu, "decode_blocks", np.array([a.n_blocks - 1, 1]))
+
+
+def test_mode1_ra_on_the_card(cuda_device):
+    """"ra" Mode 1: host-decoded stream rows uploaded as separate tensors
+    into the match kernel, once per depth bucket, never the rANS kernel."""
+    from repro_torch.core.index import ReadIndex
+    from repro_torch.core.residency import CompressedResidentStore
+    data = make_fastq("platinum", n_reads=300, seed=8)
+    a = encode(data, block_size=2048)
+    gpu = dec.Decoder(a, device=cuda_device)
+    cpu = dec.Decoder(a, device="cpu")
+    before = dict(ops.LAUNCHES)
+    rows = _same_decoders(gpu, cpu, "decode_blocks_host_entropy",
+                          np.arange(a.n_blocks))
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "rans_decode": 0, "lz77_match": len(gpu.launch_rounds_last)}
+    assert rows.cpu().numpy().reshape(-1)[:len(data)].tobytes() == data
+    idx = ReadIndex.build(data, 2048)
+    ids = np.array([0, 5, 299, 5])
+    g = CompressedResidentStore(a, idx, device=cuda_device).fetch_reads(
+        ids, mode2=False)
+    c = CompressedResidentStore(a, idx, device="cpu").fetch_reads(
+        ids, mode2=False)
+    for x, y in zip(g, c):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("mode,policy", [("ra", "lru"), ("ra", "tinylfu"),
+                                         ("global", "lru")])
+def test_cached_fetch_on_the_card(cuda_device, mode, policy):
+    """The block cache's buffer on the card: the same bytes and the same
+    `cache_info()` as the port on the CPU after every call."""
+    from repro_torch.core.index import ReadIndex
+    from repro_torch.core.residency import CompressedResidentStore
+    data = make_fastq("platinum", n_reads=400, seed=9)
+    a = encode(data, block_size=2048, mode=mode,
+               anchor_interval=4 if mode == "global" else 0)
+    idx = ReadIndex.build(data, 2048)
+    gpu, cpu = (CompressedResidentStore(a, idx, device=d, cache_blocks=8,
+                                        cache_policy=policy)
+                for d in (cuda_device, "cpu"))
+    assert gpu._cache.buf.is_cuda
+    rng = np.random.default_rng(4)
+    p = 1.0 / np.arange(1, idx.n_reads + 1) ** 1.1
+    for _ in range(6):
+        ids = rng.choice(idx.n_reads, size=32, p=p / p.sum())
+        for x, y in zip(gpu.fetch_reads(ids), cpu.fetch_reads(ids)):
+            assert torch.equal(x.cpu(), y)
+        assert gpu.cache_info() == cpu.cache_info()
+    assert gpu.cache_info()["hits"] > 0
+
+
+def test_streaming_peak_memory_on_the_card(cuda_device):
+    """A stream four times longer under the same budget peaks within 10 %
+    of the shorter one: output size does not set device memory."""
+    from repro_torch.api.address import ByteRange
+    from repro_torch.api.executors import StreamingExecutor
+    from repro_torch.core.residency import CompressedResidentStore
+    data = make_fastq("platinum", n_reads=4000, seed=10)
+    a = encode(data, block_size=4096)
+    store = CompressedResidentStore(a, device=cuda_device)
+    cpu = CompressedResidentStore(a, device="cpu")
+    budget = 16 * 4096
+    peaks = []
+    for hi in (len(data) // 4, len(data)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ex = StreamingExecutor(store, max_resident_bytes=budget)
+        out = np.concatenate(list(ex.chunks([ByteRange(0, hi)])))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        assert out.tobytes() == data[:hi]
+        ref_ex = StreamingExecutor(cpu, max_resident_bytes=budget)
+        list(ref_ex.chunks([ByteRange(0, hi)]))
+        assert ex.chunk_log == ref_ex.chunk_log
+        assert all(c.resident_bytes <= budget for c in ex.chunk_log)
+    assert peaks[1] <= 1.1 * peaks[0], peaks

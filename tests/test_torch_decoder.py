@@ -151,18 +151,21 @@ def test_fnv_rows_match_host_digest(fastq_noisy):
 
 
 def test_unported_paths_raise(fastq_noisy):
+    """Only the self-healing failure modes stay unported; Mode 1 and
+    global archives decode like the reference."""
     data = fastq_noisy[:5000]
-    a = port_archive(renc.encode(data, block_size=2048))
-    p = pdec.Decoder(a, device="cpu")
-    with pytest.raises(NotImplementedError, match="Mode 1"):
-        p.decode_blocks_host_entropy([0])
-    with pytest.raises(NotImplementedError, match="Mode 1"):
-        p.decode_all(mode2=False)
+    ra = renc.encode(data, block_size=2048)
+    p = pdec.Decoder(port_archive(ra), device="cpu")
     for how in ("repair", "partial"):
         with pytest.raises(NotImplementedError, match="self-healing"):
             p.decode_blocks([0], verify=True, on_error=how)
-    g = port_archive(renc.encode(data, block_size=2048, mode="global"))
-    with pytest.raises(NotImplementedError, match="global"):
-        pdec.Decoder(g, device="cpu")
+        with pytest.raises(NotImplementedError, match="self-healing"):
+            p.decode_all(on_error=how)
     with pytest.raises(IndexError):
-        p.decode_blocks([a.n_blocks])
+        p.decode_blocks([ra.n_blocks])
+    np.testing.assert_array_equal(
+        p.decode_blocks_host_entropy([0]).numpy(),
+        np.asarray(rdec.Decoder(ra, backend="ref").decode_blocks([0])))
+    g = renc.encode(data, block_size=2048, mode="global")
+    assert pdec.Decoder(port_archive(g), device="cpu").decode_all(
+        mode2=False).tobytes() == data

@@ -167,12 +167,21 @@ def test_import_and_fetch_leave_jax_unloaded():
 
 
 def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch,
-                                                    fastq_noisy):
+                                                    tmp_path):
+    from repro_torch.api.archive import GenomicArchive
     from repro_torch.core.decoder import Decoder
     from repro_torch.core.residency import CompressedResidentStore
-    a = penc.encode(fastq_noisy[:5000], block_size=2048)
+    data = p_make_fastq("noisy", n_reads=20, seed=2)
+    a = penc.encode(data, block_size=2048)
+    path = str(tmp_path / "a.acegad")
+    GenomicArchive.from_bytes(data, block_size=2048, device="cpu").save(path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        Decoder(a)
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        CompressedResidentStore(a)
+    from repro_torch.api.address import NameTable
+    for build in (lambda: Decoder(a),
+                  lambda: NameTable.build([b"r0", b"r1"]),
+                  lambda: CompressedResidentStore(a),
+                  lambda: CompressedResidentStore(a, cache_blocks=4),
+                  lambda: GenomicArchive.from_bytes(data, block_size=2048),
+                  lambda: GenomicArchive.open(path)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            build()

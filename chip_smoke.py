@@ -9,10 +9,16 @@ access — over an 8 GiB FASTQ corpus resident as compressed words, and
 the paths of the query plane: global (anchored wavefront) archives
 through `GenomicArchive` (64 MiB anchored, 16 MiB anchor-free, 1 MiB
 placed across 2^32), Mode 1, VRAM-budgeted streaming of the 8 GiB
-archive, and the decoded-block cache under Zipf traffic. It checks every
-decoded byte against the source. Each phase prints one JSON line; the
-last line is `{"ok": true, "device": {...}}`. Any mismatch or failure
-exits non-zero; without a CUDA card it exits non-zero at once.
+archive, the decoded-block cache under Zipf traffic, and the
+self-healing and serving planes: an 8 GiB parity-protected store healed
+on the card (`on_error="repair"` through decode_all, cached fetches and
+a stream), a parity group corrupted twice and served as typed
+`ReadCorrupt` results (`on_error="partial"`), and two tenants of a
+`ServingFrontend` over the 8 GiB store under closed-loop traffic. It
+checks every decoded and served byte against the source. Each phase
+prints one JSON line; the last line is `{"ok": true, "device": {...}}`.
+Any mismatch or failure exits non-zero; without a CUDA card it exits
+non-zero at once.
 """
 from __future__ import annotations
 
@@ -36,6 +42,16 @@ WRAP_BLOCKS = 64                  # 1 MiB placed across 2^32:
 WRAP_ORIGIN = 2**32 - 2**19 + 17  # its low 32 bits wrap mid-archive
 STREAM_BUDGET = 256 << 20         # max_resident_bytes of the stream phase
 CACHE_BLOCKS = 8192               # cache phase: 128 MiB of decoded slots
+HEAL_GROUP = 8                    # heal phase: XOR parity over 8 blocks ...
+HEAL_FLIPS = 64                   # ... one word flipped in each of 64 groups
+HEAL_CHUNK = 65536                # verified decode_all chunk: 1 GiB
+HEAL_CACHE = 1024                 # the parity store's decoded-block cache
+SERVE_FLOOR = 2048                # serve phase: CACHE_BLOCKS slots, this
+                                  # floor for each of two tenants
+SERVE_KEYS = 1 << 16              # Zipf keys, spread over every read id
+SERVE_DEADLINE_US = 100_000.0     # the priority-0 tenant's deadline
+SERVE_REQUESTS = 4096             # requests a tenant ...
+SERVE_CONCURRENCY = 32            # ... with this many outstanding
 SEED = 12
 DEVICE = "cuda"
 # peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
@@ -283,7 +299,7 @@ def phase_resident():
           "max_read_start": int(store.index.starts[-2]),
           "device_memory_allocated": (torch.cuda.memory_allocated()
                                       if DEVICE == "cuda" else None)})
-    return corpus, index, store, tiled
+    return corpus, index, store, tiled, a
 
 
 def check_tiled(chunk: np.ndarray, pos: int, src: np.ndarray,
@@ -299,6 +315,15 @@ def check_tiled(chunk: np.ndarray, pos: int, src: np.ndarray,
         i += take
 
 
+def check_all(out: np.ndarray, src: np.ndarray, what: str) -> None:
+    """`out` must be the whole tiled corpus, tile by tile."""
+    n = src.size
+    if out.size != n * TILES or any(
+            not np.array_equal(out[t * n:(t + 1) * n], src)
+            for t in range(TILES)):
+        fail(f"{what} is not bit-perfect against the source")
+
+
 def phase_decode(corpus, store):
     import torch
     from repro_torch.kernels import ops
@@ -310,10 +335,7 @@ def phase_decode(corpus, store):
     out = dec.decode_all(chunk_blocks=CHUNK)
     decode_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    if out.size != n * TILES or any(
-            not np.array_equal(out[t * n:(t + 1) * n], src)
-            for t in range(TILES)):
-        fail("decode_all is not bit-perfect against the source")
+    check_all(out, src, "decode_all")
     del out
     # once more, past the first call's warm-up
     t0 = time.perf_counter()
@@ -499,19 +521,27 @@ def phase_timing(store):
     return out
 
 
-def phase_profile(store):
-    """Device busy time and idle share of one decode chunk and one B=256
-    fetch, and every kernel that ran on the device: launches and device
-    ms by name."""
+def phase_profile(store, a):
+    """Device busy time and idle share of one decode chunk, one B=256
+    fetch and one parity XOR rebuild (a 16 KiB block of an 8-block group
+    of the 16 MiB archive `a` with its parity tail, on the card), and
+    every kernel that ran on the device: launches and device ms by
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.decoder import Decoder
+    from repro_torch.resilience.parity import reconstruct_blocks, with_parity
     rng = np.random.default_rng(SEED + 1)
     d = store.decoder
     ids = rng.integers(0, store.index.n_reads, 256)
+    pd = Decoder(with_parity(a, HEAL_GROUP), device=DEVICE)
+    words0 = pd.da.words.clone()
+    b = a.n_blocks // 2 + 3
     result = {}
     for name, fn in (
             ("decode_chunk", lambda: d.decode_blocks(np.arange(CHUNK))),
-            ("fetch_b256", lambda: store.fetch_reads(ids))):
+            ("fetch_b256", lambda: store.fetch_reads(ids)),
+            ("xor_rebuild", lambda: reconstruct_blocks(pd, [b]))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -539,6 +569,9 @@ def phase_profile(store):
                         "launches_ms_by_kernel": [[k[:90], n, ms] for
                                                   k, (n, ms) in top]}
     emit({"phase": "profile", **result})
+    if not torch.equal(pd.da.words, words0):
+        fail("rebuilding a clean block changed its words")
+    return result
 
 
 def _peak_above(base: int) -> int:
@@ -923,6 +956,414 @@ def phase_cache(corpus, index, tiled):
     return launches
 
 
+def _reads_of_blocks(starts: np.ndarray, blocks) -> np.ndarray:
+    """Read ids of the tiled store (start table `starts`, i64) whose bytes
+    overlap any of `blocks`."""
+    ids = []
+    for b in np.asarray(blocks, np.int64):
+        lo = int(np.searchsorted(starts, b * BLOCK, "right")) - 1
+        hi = int(np.searchsorted(starts, (b + 1) * BLOCK, "left"))
+        ids.extend(range(max(lo, 0), min(hi, starts.size - 1)))
+    return np.unique(np.asarray(ids, np.int64))
+
+
+def phase_heal(corpus, index, a):
+    """The 16 MiB archive with an XOR-parity tail of 8-block groups,
+    tiled to an 8 GiB store (on_error="repair" by default). One payload
+    word flipped in each of 64 groups spread over the store, then: the
+    verified decode_all (with and without the 64 heals, in turns), a
+    cached fetch_reads over freshly flipped blocks, and a stream over a
+    freshly flipped range — each bit-perfect."""
+    import torch
+    from repro_torch.api import ByteRange, GenomicArchive
+    from repro_torch.core.residency import CompressedResidentStore
+    from repro_torch.data.tiling import tile_archive, tile_index
+    from repro_torch.kernels import ops
+    from repro_torch.resilience.faults import FaultInjector
+    from repro_torch.resilience.parity import reconstruct_blocks, with_parity
+    src = np.frombuffer(corpus, np.uint8)
+    t0 = time.perf_counter()
+    pa = tile_archive(with_parity(a, HEAL_GROUP), TILES)
+    store = CompressedResidentStore(
+        pa, tile_index(index, TILES, len(corpus)), device=DEVICE,
+        cache_blocks=HEAL_CACHE, verify=True, on_error="repair")
+    sync()
+    build_s = time.perf_counter() - t0
+    dec = store.decoder
+    starts = np.asarray(store.index.starts, np.int64)
+    n_groups = pa.n_blocks // HEAL_GROUP
+    fi = FaultInjector(seed=SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+
+    def flip_groups(offset: int) -> np.ndarray:
+        """One word flipped in each of HEAL_FLIPS groups spread evenly
+        over the store; returns the flipped blocks."""
+        groups = (np.arange(HEAL_FLIPS) * (n_groups // HEAL_FLIPS)
+                  + offset) % n_groups
+        blocks = groups * HEAL_GROUP + rng.integers(0, HEAL_GROUP,
+                                                    HEAL_FLIPS)
+        for b in blocks:
+            fi.flip_payload_word(dec, block=int(b))
+        return blocks
+
+    def verified_all(what: str) -> float:
+        info0 = dec.recover_info()
+        t0 = time.perf_counter()
+        out = dec.decode_all(chunk_blocks=HEAL_CHUNK, verify=True,
+                             on_error="repair")
+        s = time.perf_counter() - t0
+        check_all(out, src, what)
+        info = dec.recover_info()
+        return s, {k: info[k] - info0[k] for k in info}
+
+    # one XOR rebuild alone, on the clean store: it rewrites the same
+    # words (its device time is the profile phase's)
+    b = pa.n_blocks // 2 + 3
+    w0, w1 = int(pa.word_off[b, 0]), int(pa.word_off[b + 1, 0])
+    words0 = dec.da.words[w0:w1].clone()
+    sync()
+    t0 = time.perf_counter()
+    reconstruct_blocks(dec, [b])
+    sync()
+    xor_wall_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(dec.da.words[w0:w1], words0):
+        fail("rebuilding a clean block changed its words")
+    ops.reset_launches()
+    turns = []
+    clean_s, d = verified_all("the clean verified decode_all")
+    turns.append(["clean", clean_s, d])
+    failed_first = []
+    for offset in (0, 1):
+        flip_groups(offset)
+        heal_s, d = verified_all("the healing decode_all")
+        turns.append(["heal", heal_s, d])
+        failed_first.append(d["reconstructed"] + d["unrecoverable"])
+        if d["unrecoverable"] or not d["reconstructed"]:
+            fail(f"64 flips in 64 groups healed as {d}")
+    clean_s, d = verified_all("the clean verified decode_all")
+    turns.append(["clean", clean_s, d])
+    decode_launches = dict(ops.LAUNCHES)
+    # a cached fetch over freshly flipped blocks, then again from the cache
+    flipped = flip_groups(2)
+    ids = _reads_of_blocks(starts, flipped)
+    info0 = dec.recover_info()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        out, lens = store.fetch_reads(ids)
+        _check_reads(out, lens, ids, corpus, np.asarray(index.starts,
+                                                        np.int64))
+    fetch_s = time.perf_counter() - t0
+    fetch_healed = dec.recover_info()["reconstructed"] - \
+        info0["reconstructed"]
+    if not fetch_healed:
+        fail("the cached fetch over flipped blocks healed nothing")
+    # a stream over a freshly flipped range of 64 blocks
+    lo = pa.n_blocks // 3 // HEAL_GROUP * HEAL_GROUP
+    for b in (lo + 3, lo + 20, lo + 45):
+        fi.flip_payload_word(dec, block=b)
+    info0 = dec.recover_info()
+    pos = lo * BLOCK
+    for chunk in GenomicArchive(store).stream(
+            [ByteRange(lo * BLOCK, (lo + 64) * BLOCK)],
+            max_resident_bytes=16 * BLOCK, verify=True, on_error="repair"):
+        check_tiled(chunk, pos, src, "the healing stream")
+        pos += chunk.size
+    if pos != (lo + 64) * BLOCK:
+        fail("the healing stream ended early")
+    stream_healed = dec.recover_info()["reconstructed"] - \
+        info0["reconstructed"]
+    launches = dict(ops.LAUNCHES)
+    emit({"phase": "heal", "raw_bytes": pa.raw_size, "n_blocks": pa.n_blocks,
+          "parity_group": HEAL_GROUP, "parity_groups": n_groups,
+          "parity_bytes": int(pa.parity_words.size) * 2,
+          "compressed_device_bytes": store.stats().compressed_device_bytes,
+          "build_s": build_s, "flips_per_heal_run": HEAL_FLIPS,
+          "verified_chunk_blocks": HEAL_CHUNK,
+          "decode_all_turns": turns,
+          "failed_first_verification": failed_first,
+          "extra_s_per_heal_run": (
+              (turns[1][1] + turns[2][1] - turns[0][1] - turns[3][1]) / 2),
+          "fetch_reads": int(ids.size), "fetch_s": fetch_s,
+          "fetch_healed": fetch_healed, "stream_healed": stream_healed,
+          "recover_info": dec.recover_info(),
+          "xor_rebuild": {"block_words": w1 - w0,
+                          "siblings": HEAL_GROUP - 1,
+                          "wall_ms": xor_wall_ms},
+          "decode_all_launches": decode_launches, "launches": launches,
+          "bit_perfect": True})
+    return launches, store, xor_wall_ms
+
+
+def phase_partial(corpus, index, store):
+    """Two flips in one parity group of the heal store, served through a
+    `ServingFrontend(verify=True, on_error="partial")`: the reads of the
+    two blocks come back as typed `ReadCorrupt`, every other read is
+    bit-exact, the blocks quarantine and never decode again, a repair
+    decode of them raises; a corrupted digest table stays fatal and a
+    transient fault retries bit-exact."""
+    from repro_torch.api import GenomicArchive
+    from repro_torch.core.decoder import BlockDigestError
+    from repro_torch.kernels import ops
+    from repro_torch.resilience.faults import (FaultInjector,
+                                               TransientDecodeError)
+    from repro_torch.serving.frontend import ReadCorrupt, ServingFrontend
+    dec = store.decoder
+    src = np.frombuffer(corpus, np.uint8)
+    starts = np.asarray(store.index.starts, np.int64)
+    g = dec.da.n_blocks // HEAL_GROUP * 2 // 3
+    blks = [g * HEAL_GROUP + 1, g * HEAL_GROUP + 5]
+    hit = _reads_of_blocks(starts, blks)
+    rng = np.random.default_rng(SEED + 8)
+    ids = np.unique(np.concatenate([
+        _reads_of_blocks(starts, range(g * HEAL_GROUP,
+                                       (g + 1) * HEAL_GROUP)),
+        rng.integers(0, starts.size - 1, 256)]))
+    fi = FaultInjector(seed=SEED + 8)
+    fe = ServingFrontend({"wgs": GenomicArchive(store)}, verify=True,
+                         on_error="partial")
+    fe.register_tenant("clinical", "wgs")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for trial in range(5):
+        for b in blks:
+            fi.flip_payload_word(dec, block=b)
+        store._cache.invalidate(np.asarray(blks, np.int64))
+        tickets = [fe.submit("clinical", int(i)) for i in ids]
+        fe.drain()
+        res = [fe.result(t) for t in tickets]
+        if any(r.status == "corrupt" for r in res):
+            break
+    else:
+        fail("two flips in one parity group were never detected")
+    serve_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_reads = index.n_reads
+    istarts = np.asarray(index.starts, np.int64)
+    corrupt = []
+    for r, i in zip(res, ids):
+        if r.status == "corrupt":
+            if not isinstance(r.payload, ReadCorrupt) or i not in hit:
+                fail(f"read {i} reported corrupt: {r}")
+            corrupt.append(int(i))
+            continue
+        s, e = int(istarts[i % n_reads]), int(istarts[i % n_reads + 1])
+        if r.status != "ok" or r.payload.tobytes() != corpus[s:e]:
+            fail(f"healthy read {i} disturbed: {r.status}")
+    info = dec.recover_info()
+    q = sorted(dec.quarantined)
+    if not q or not set(q) <= set(blks):
+        fail(f"quarantine {q} after flipping {blks}")
+    # the quarantined blocks never decode again: no launch, zero rows
+    before = dict(ops.LAUNCHES)
+    dec.decoded_blocks_last = 0
+    rows = dec.decode_blocks(q, verify=True, on_error="partial")
+    if (dec.decoded_blocks_last or bool(rows.any())
+            or dict(ops.LAUNCHES) != before):
+        fail("a quarantined block was decoded again")
+    try:
+        dec.decode_blocks(q, verify=True, on_error="repair")
+        fail("a repair decode of quarantined blocks did not raise")
+    except BlockDigestError as e:
+        if "quarantined" not in str(e):
+            raise
+    # the digest table stays fatal under every on_error
+    ev = fi.corrupt_digest(dec, block=int(blks[0]) + 1)
+    for how in ("raise", "repair", "partial"):
+        try:
+            dec.decode_all(chunk_blocks=HEAL_CHUNK, verify=True,
+                           on_error=how)
+            fail(f"a corrupt digest table decoded under {how}")
+        except BlockDigestError as e:
+            if "file digest" not in str(e):
+                raise
+    dec.archive.block_fnv[ev["block"]] ^= np.uint64(1 << ev["bit"])
+    # a transient fault fails one call; the retry is bit-exact
+    fi.transient_failures(dec, n=1)
+    lo = dec.da.n_blocks // 4
+    sel = np.arange(lo, lo + min(256, lo))
+    try:
+        dec.decode_blocks(sel, verify=True)
+        fail("the injected transient fault did not raise")
+    except TransientDecodeError:
+        pass
+    rows = dec.decode_blocks(sel, verify=True).cpu().numpy()
+    per_tile = len(corpus) // BLOCK
+    want = src.reshape(per_tile, BLOCK)[sel % per_tile]
+    if not np.array_equal(rows, want):
+        fail("the retry after a transient fault is not the source")
+    emit({"phase": "partial", "group": g, "flipped_blocks": blks,
+          "trials": trial + 1, "reads": int(ids.size),
+          "reads_of_flipped_blocks": int(hit.size),
+          "corrupt_results": len(corrupt), "serve_s": serve_s,
+          "quarantined": q, "recover_info": info,
+          "tenant": fe.stats()["tenants"]["clinical"],
+          "digest_table_fatal": True, "transient_retry_bit_exact": True,
+          "launches": launches})
+    if not launches["rans_decode"] or not launches["lz77_match"]:
+        fail(f"partial serving launches: {launches}")
+    return launches
+
+
+def phase_serve(corpus, index, tiled):
+    """A `ServingFrontend` over the 8 GiB store as a `GenomicArchive`: a
+    cache of CACHE_BLOCKS slots under `TenantPartitionPolicy` (a floor of
+    SERVE_FLOOR each), a priority-0 tenant of Zipf(1.1) read ids with a
+    tight deadline and a priority-2 tenant mixing Zipf read ids and byte
+    spans, closed loop; then a burst against a small queue. Every served
+    payload is checked against the source."""
+    from repro_torch.api import GenomicArchive
+    from repro_torch.api.cache import FrequencySketch
+    from repro_torch.core.residency import CompressedResidentStore
+    from repro_torch.data.tiling import tile_index
+    from repro_torch.kernels import ops
+    from repro_torch.serving.admission import TenantPartitionPolicy
+    from repro_torch.serving.frontend import ServingFrontend, Ticket
+    from repro_torch.serving.traffic import (MixSampler, ScanSampler,
+                                             TenantLoad, ZipfianSampler,
+                                             run_closed_loop)
+    src = np.frombuffer(corpus, np.uint8)
+    istarts = np.asarray(index.starts, np.int64)
+    pol = TenantPartitionPolicy({"clinical": SERVE_FLOOR,
+                                 "cohort": SERVE_FLOOR})
+    store = CompressedResidentStore(
+        tiled, tile_index(index, TILES, len(corpus)), device=DEVICE,
+        cache_blocks=CACHE_BLOCKS, cache_policy=pol)
+    ga = GenomicArchive(store)
+    keys = min(SERVE_KEYS, ga.n_reads)
+    stride = ga.n_reads // keys
+
+    class Spread:
+        """Zipf keys spread over every read id of the store."""
+
+        def __init__(self, seed):
+            self.z = ZipfianSampler(keys, s=1.1, seed=seed)
+
+        def draw(self, k):
+            return [i * stride for i in self.z.draw(k)]
+
+    class Checked(ServingFrontend):
+        """Keeps every served payload with its address, and the decode
+        calls of each dispatch."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.addr, self.served = {}, []
+            self.dispatches = self.max_decodes = 0
+            self.dispatch_s = {}
+
+        def submit(self, tenant, address, **kw):
+            t = super().submit(tenant, address, **kw)
+            if isinstance(t, Ticket):
+                self.addr[t.seq] = address
+            return t
+
+        def _dispatch(self, akey, tenant, reqs):
+            calls = ga.cache_info()["decode_launches"]
+            t0 = time.perf_counter()
+            out = super()._dispatch(akey, tenant, reqs)
+            self.dispatch_s[tenant] = (self.dispatch_s.get(tenant, 0.0)
+                                       + time.perf_counter() - t0)
+            self.dispatches += 1
+            self.max_decodes = max(
+                self.max_decodes, ga.cache_info()["decode_launches"] - calls)
+            return out
+
+        def take_results(self):
+            out = super().take_results()
+            for seq, res in out.items():
+                if res.payload is not None:
+                    self.served.append((self.addr[seq], res.payload))
+            return out
+
+    def check(fe):
+        for addr, payload in fe.served:
+            if isinstance(addr, slice):
+                if payload.size != addr.stop - addr.start:
+                    fail(f"span {addr} served {payload.size} bytes")
+                check_tiled(payload, addr.start, src, "a served span")
+            else:
+                r = addr % index.n_reads
+                if payload.tobytes() != corpus[istarts[r]:istarts[r + 1]]:
+                    fail(f"served read {addr} is not the source")
+        return len(fe.served)
+
+    def report(fe, rep, info0):
+        b = fe._batchers.get("wgs")
+        flushes = b.stats()["flushes"] if b else 0
+        st = fe.stats()
+        el = rep["aggregate"]["elapsed_s"]
+        return {"elapsed_s": el, "steps": st["steps"],
+                "device_bytes": st["device_bytes"], "flushes": flushes,
+                "dispatches": fe.dispatches,
+                "dispatch_s_by_tenant": fe.dispatch_s,
+                "max_decode_calls_per_dispatch": fe.max_decodes,
+                "decode_calls": (ga.cache_info()["decode_launches"]
+                                 - info0["decode_launches"]),
+                "payloads_checked": check(fe),
+                "estimator": rep["estimator"],
+                "tenants": {name: {**t, "reads_per_s": (t["ok"] + t["late"])
+                                   / el,
+                                   "partition_slots":
+                                       pol.resident_counts().get(name, 0)}
+                            for name, t in rep["tenants"].items()}}
+
+    fe = Checked({"wgs": ga}, max_batch=256)
+    fe.register_tenant("clinical", "wgs", priority=0)
+    fe.register_tenant("cohort", "wgs", priority=2)
+    loads = [
+        TenantLoad("clinical", Spread(SEED + 9), requests=SERVE_REQUESTS,
+                   concurrency=SERVE_CONCURRENCY,
+                   deadline_us=SERVE_DEADLINE_US),
+        TenantLoad("cohort", MixSampler(
+            [Spread(SEED + 10), ScanSampler(ga.raw_size, span_bytes=4 * BLOCK,
+                                            seed=SEED + 11)],
+            [0.7, 0.3], seed=SEED + 12), requests=SERVE_REQUESTS,
+            concurrency=SERVE_CONCURRENCY, deadline_us=1e6),
+    ]
+    ops.reset_launches()
+    info0 = ga.cache_info()
+    rep = run_closed_loop(fe, loads, verify_sample=8)
+    loop = report(fe, rep, info0)
+    if fe.max_decodes > 1:
+        fail(f"a dispatch made {fe.max_decodes} decode calls")
+    # a burst: the low band's small queue pushes back, the high band is
+    # served in full
+    burst = Checked({"wgs": ga}, max_batch=256)
+    burst.register_tenant("hi", "wgs", priority=0, max_queue=256)
+    burst.register_tenant("lo", "wgs", priority=2,
+                          max_queue=SERVE_CONCURRENCY // 2)
+    info1 = ga.cache_info()
+    n_hi = SERVE_REQUESTS // 4
+    brep = run_closed_loop(burst, [
+        TenantLoad("hi", Spread(SEED + 13), requests=n_hi,
+                   concurrency=2 * SERVE_CONCURRENCY),
+        TenantLoad("lo", Spread(SEED + 14), requests=SERVE_REQUESTS // 2,
+                   concurrency=4 * SERVE_CONCURRENCY)], verify_sample=0)
+    launches = dict(ops.LAUNCHES)
+    hi, lo = brep["tenants"]["hi"], brep["tenants"]["lo"]
+    if hi["ok"] != n_hi or hi["rejected"] or hi["shed"] or hi["late"]:
+        fail(f"the high band was not served in full: {hi}")
+    if not lo["rejected"]:
+        fail(f"the low band's small queue never pushed back: {lo}")
+    # host time of one TinyLFU sketch update at this archive's width (the
+    # admission filter records each plan's sightings up to three times)
+    sketch = FrequencySketch(ga.store.decoder.da.n_blocks)
+    seen = np.random.default_rng(SEED + 15).integers(0, sketch.width, 64)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sketch.add(seen)
+    sketch_add_ms = (time.perf_counter() - t0) * 1e3 / 20
+    emit({"phase": "serve", "raw_bytes": ga.raw_size, "n_reads": ga.n_reads,
+          "cache_blocks": CACHE_BLOCKS, "floors": SERVE_FLOOR,
+          "zipf_keys": keys, "zipf_s": 1.1,
+          "deadline_us": SERVE_DEADLINE_US,
+          "span_bytes": 4 * BLOCK, "closed_loop": loop,
+          "sketch_width": sketch.width, "sketch_add_ms_64_keys": sketch_add_ms,
+          "burst": report(burst, brep, info1),
+          "cache_info": ga.cache_info(), "launches": launches})
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -932,28 +1373,34 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
     small_err = phase_kernels_vs_plain()
-    corpus, index, store, tiled = phase_resident()
+    corpus, index, store, tiled, a16 = phase_resident()
     paths = {}
     paths["decode"], dec_calls = phase_decode(corpus, store)
     paths["fetch"], fetch_calls = phase_fetch(corpus, index, store)
     timing = phase_timing(store)
-    phase_profile(store)
+    profile = phase_profile(store, a16)
     paths["global"], window = phase_global()
     paths["mode1"] = phase_mode1(corpus, index, store)
     paths["stream"] = phase_stream(corpus, store)
     paths["cache"] = phase_cache(corpus, index, tiled)
+    paths["heal"], heal_store, xor_wall_ms = phase_heal(corpus, index, a16)
+    paths["partial"] = phase_partial(corpus, index, heal_store)
+    del heal_store
+    paths["serve"] = phase_serve(corpus, index, tiled)
     # the paths each kernel runs on, and those it must not
     runs_on = {"rans_decode": ("decode", "fetch", "global", "stream",
-                               "cache"),
+                               "cache", "heal", "partial", "serve"),
                "lz77_match": ("decode", "fetch", "mode1", "stream",
-                              "cache")}
+                              "cache", "heal", "partial", "serve")}
     for k, on in runs_on.items():
         for path, counts in paths.items():
             if (path in on) != bool(counts[k]):
                 fail(f"{k} launched {counts[k]} times on the {path} path")
     emit({"phase": "summary", "elapsed_s": time.perf_counter() - t_start,
           "global_resolve_ms_per_window": window["resolve_ms_per_window"],
-          "global_resolve_share": window["resolve_share_of_device"]})
+          "global_resolve_share": window["resolve_share_of_device"],
+          "xor_rebuild_device_ms": profile["xor_rebuild"]["device_busy_ms"],
+          "xor_rebuild_wall_ms": xor_wall_ms})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

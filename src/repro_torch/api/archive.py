@@ -60,7 +60,10 @@ class GenomicArchive:
         `EvictionPolicy`). `anchor_interval` (global mode) emits a
         wavefront restart point every that many blocks, so point queries
         decode one anchor window instead of the whole prefix.
-        `parity_group > 0` comes with the self-healing slice."""
+        `parity_group=k` stores one XOR parity row per k compressed blocks
+        (the `ACEJAX05` tail): any single corrupt block of a group heals
+        on the device under `on_error="repair"`. `verify`/`on_error` are
+        the store's defaults for every query."""
         from repro_torch.core.encoder import encode
         from repro_torch.core.index import ReadIndex, parse_fastq_records
         from repro_torch.core.residency import CompressedResidentStore
@@ -84,7 +87,8 @@ class GenomicArchive:
                      verify: bool = False,
                      on_error: str = "raise") -> "GenomicArchive":
         """Fixed-size records (tokenized corpora): arithmetic index, no
-        names. `data` is cut to a whole number of records."""
+        names. `data` is cut to a whole number of records. The other
+        arguments are those of `from_bytes`."""
         from repro_torch.core.encoder import encode
         from repro_torch.core.index import ReadIndex
         from repro_torch.core.residency import CompressedResidentStore
@@ -237,7 +241,8 @@ class GenomicArchive:
         residency for "ra" at 16 KiB blocks on an H100, see
         `StreamingExecutor`), and the peak does not grow with the output.
         `verify=True` checks per-block digests on the device before each
-        chunk is cropped to spans."""
+        chunk is cropped to spans; `on_error` picks the recovery semantics
+        (raise `BlockDigestError` | parity `"repair"` | `"partial"`)."""
         ex = StreamingExecutor(self.store,
                                max_resident_bytes=max_resident_bytes,
                                mode2=mode2, planner=self.planner,
@@ -274,11 +279,16 @@ class GenomicArchive:
         return self.store.cache_info()
 
     def recover_info(self) -> dict:
-        raise _not_in_slice("GenomicArchive.recover_info", "self-healing")
+        """Recovery counters of the underlying decoder: blocks
+        parity-`reconstructed`, decode `retries`, `unrecoverable`
+        failures, and currently `quarantined` blocks."""
+        return self.store.decoder.recover_info()
 
     @property
     def last_corrupt(self) -> np.ndarray:
-        raise _not_in_slice("GenomicArchive.last_corrupt", "self-healing")
+        """Per-address corrupt mask of the most recent query (bool[B];
+        all False unless `on_error="partial"` met unrecoverable blocks)."""
+        return self.executor.last_corrupt
 
     def __repr__(self) -> str:
         st = self.stats()

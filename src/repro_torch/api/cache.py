@@ -481,7 +481,13 @@ class BlockCache:
     def invalidate(self, blocks: np.ndarray) -> int:
         """Evict `blocks` from the slot maps without touching the buffer
         (their slots free; stale rows are unreachable once unmapped).
-        Returns the number evicted."""
+
+        The quarantine path: `plan()` registers misses as resident BEFORE
+        the decode runs, so when a verified decode reports corrupt blocks
+        (`Decoder.last_bad_blocks`) their zeroed rows are already
+        installed — the store invalidates them right after `realize` so
+        they are never served as hits. Invalidations count as evictions,
+        as in the reference. Returns the number evicted."""
         blocks = np.unique(np.asarray(blocks, np.int64).reshape(-1))
         blocks = blocks[(blocks >= 0) & (blocks < self.n_blocks)]
         slots = self.slot_of[blocks]

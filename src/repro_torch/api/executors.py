@@ -28,9 +28,10 @@ import torch
 
 from repro_torch.api.address import Address
 from repro_torch.api.plan import DecodePlan, QueryPlanner, anchor_floor
-from repro_torch.core.decoder import _not_in_slice, _pad_pow2, check_on_error
+from repro_torch.core.decoder import _not_in_slice, _pad_pow2
 from repro_torch.core.residency import (_fetch_dev_core, _fetch_reads_core,
                                         _gather_reads_core)
+from repro_torch.resilience import check_on_error
 
 
 class _DecoderStore:
@@ -76,8 +77,9 @@ class DeviceExecutor:
 
     Returns ((n_queries, max_len) u8 zero-padded rows, (n_queries,) i32
     lengths), both on the device. `last_corrupt` is the per-address
-    corrupt mask of the most recent run: all False under
-    `on_error="raise"`, which raises instead.
+    corrupt mask of the most recent run (bool[B]): all False unless a
+    verified run under `on_error="partial"` met unrecoverable blocks —
+    the typed per-address outcome the serving plane consumes.
     """
 
     def __init__(self, store):
@@ -129,9 +131,14 @@ class DeviceExecutor:
         # staged: host covering set, rows from the store (block cache, one
         # decode per miss set and depth bucket, Mode 1's host entropy
         # stage), then the same ragged gather; bytes stay on the device
-        uniq = plan.host_cover()[3]
+        uniq, row_map = plan.host_cover()[3:]
         rows = store._rows_for_blocks(uniq, mode2, verify=verify,
                                       on_error=on_error)
+        if verify and dec.last_bad_blocks.size:
+            # per-address typed outcomes: an address is corrupt iff any
+            # of its covering blocks is (its bytes include zeroed rows)
+            bad_row = np.isin(uniq, dec.last_bad_blocks)
+            self.last_corrupt = bad_row[row_map].any(axis=1)[:B]
         return _gather_plan(rows, plan)[:B], lens
 
 
@@ -184,8 +191,10 @@ class StreamingExecutor:
     is rejected up front instead of being violated on the device.
 
     `verify=True` digest-checks each decoded block on the device before
-    rows are cropped to spans, raising `BlockDigestError` naming the true
-    block id. `sharded=` comes with the multi-GPU slice of the port.
+    rows are cropped to spans; `on_error` picks what a mismatch does
+    ("raise" `BlockDigestError` naming the true block id, parity
+    "repair", or "partial": quarantined blocks stream as zeros).
+    `sharded=` comes with the multi-GPU slice of the port.
     """
 
     def __init__(self, store, max_resident_bytes: Optional[int] = None,

@@ -15,8 +15,12 @@ the rANS kernel, then one flat pointer space per window resolved in
 plain PyTorch, as the reference resolves it. Whole-file decode streams
 the selection [0, n_blocks) in chunks.
 
-The failure semantics are "raise"; `on_error="repair"|"partial"` raise
-`NotImplementedError` naming the self-healing slice.
+A verified decode digest-checks every row on the device and, on a
+mismatch, runs the detect → recover → degrade loop per `on_error`:
+"raise" (`BlockDigestError`), "repair" (parity reconstruction of the
+payload, one re-decode through the same kernels, re-verify) or
+"partial" (unrecoverable blocks quarantine and read back as zeros, with
+`last_bad_blocks` naming them). See `repro_torch.resilience`.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.core.format import (FNV_OFFSET, N_STREAMS, STREAM_NAMES,
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (StreamLayout, lz77_decode_global_ref,
                                      planes_le, rans_tables, stream_layout)
+from repro_torch.resilience import check_on_error
 
 
 class BlockDigestError(ValueError):
@@ -54,15 +59,6 @@ def _not_in_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice of "
         f"the PyTorch port")
-
-
-def check_on_error(on_error: str) -> str:
-    if on_error in ("repair", "partial"):
-        raise _not_in_slice(f'on_error="{on_error}"', "self-healing")
-    if on_error != "raise":
-        raise ValueError(f"on_error must be 'raise', 'repair' or 'partial', "
-                         f"got {on_error!r}")
-    return on_error
 
 
 def _pad_pow2(ids: np.ndarray) -> np.ndarray:
@@ -425,6 +421,25 @@ class Decoder:
         # Off by default: holding decoded windows costs device memory.
         self.collect_window_rows = False
         self.last_window_rows: list = []
+        # ---- detect → recover → degrade state ----
+        # blocks proven unrecoverable under on_error="partial": never
+        # re-decoded, never cache-installed; "raise"/"repair" requests
+        # that touch them fail at once
+        self.quarantined: set = set()
+        self._recover = {"reconstructed": 0, "retries": 0,
+                         "unrecoverable": 0}
+        # block ids that failed (quarantined or zeroed) in the most recent
+        # decode call — callers (cache invalidation, per-address outcomes)
+        # read this right after the call
+        self.last_bad_blocks = np.zeros(0, np.int64)
+        # blocks that failed INITIAL verification in the most recent call,
+        # even if later repaired: window rows collected before the repair
+        # may hold their pre-repair garbage, so the cache co-install skips
+        # them
+        self.last_suspect_blocks = np.zeros(0, np.int64)
+        # fault-injection hook: called once at the top of every decode
+        # call when armed (repro_torch.resilience.faults.FaultInjector)
+        self.fault_hook = None
 
     def _api_store(self):
         """Store-shaped adapter over this decoder so the host APIs ride the
@@ -514,22 +529,144 @@ class Decoder:
                 _entropy_decode_host(self.archive, sel,
                                      self.da.max_cmds).items()}
 
+    # ------------------------------------------- recover / degrade
+    def recover_info(self) -> dict:
+        """Cumulative recovery counters: `reconstructed` (blocks healed
+        by parity + re-verified bit-perfect), `retries` (recovery decode
+        passes), `unrecoverable` (blocks that stayed corrupt after
+        reconstruction), `quarantined` (currently quarantined blocks)."""
+        info = dict(self._recover)
+        info["quarantined"] = len(self.quarantined)
+        return info
+
+    def heal_blocks(self, bad) -> np.ndarray:
+        """Parity-reconstruct the payloads of `bad` on the device."""
+        from repro_torch.resilience.parity import reconstruct_blocks
+        return reconstruct_blocks(self, bad)
+
+    def _verify_or_recover(self, sel: np.ndarray, rows: torch.Tensor,
+                           on_error: str, redecode) -> torch.Tensor:
+        """Digest-check decoded `rows`; on mismatch, run the detect →
+        recover → degrade loop per `on_error`. `redecode(blocks)` must
+        return fresh unverified rows for block ids `blocks`.
+
+        Recovery iterates because corruption is not always where the
+        digest fails: in "global" mode a corrupt payload poisons every
+        later block of its anchor window (the match chain), so only the
+        EARLIEST failing block per window is a reconstruction target each
+        pass — healing it and re-decoding clears the later failures (or
+        exposes the next true corruption). "ra" blocks are independent, so
+        every failing block is a target at once. The loop stops when
+        clean, when the bad set stops shrinking (e.g. two corruptions in
+        one parity group reconstruct to garbage), or when the archive
+        carries no parity. Rows are patched in place (`index_put_`)."""
+        sel = np.asarray(sel, np.int64).reshape(-1)
+        if sel.size == 0:
+            return rows
+        got = self._row_digests(sel, rows)
+        want = self.archive.block_fnv[sel]
+        badpos = np.flatnonzero(got != want)
+        if badpos.size == 0:
+            return rows
+        if on_error == "raise":
+            self.check_digests(sel, got)        # raises BlockDigestError
+        bad = np.unique(sel[badpos])
+        self.last_suspect_blocks = np.union1d(self.last_suspect_blocks, bad)
+        for _ in range(int(bad.size)):
+            if self.da.mode == "global":
+                targets = np.asarray(
+                    [int(bad[idx].min()) for _, _, idx
+                     in self._anchor_groups(bad)], np.int64)
+            else:
+                targets = bad
+            if self.heal_blocks(targets).size == 0:
+                break                           # no parity in the archive
+            self._recover["retries"] += 1
+            new_rows = redecode(bad)
+            ok = (self._row_digests(bad, new_rows)
+                  == self.archive.block_fnv[bad])
+            fixed = set(bad[ok].tolist())
+            self._recover["reconstructed"] += int(
+                sum(int(t) in fixed for t in targets))
+            if fixed:
+                pos_in_bad = {int(b): i for i, b in enumerate(bad)}
+                fix_sel = np.asarray(
+                    [i for i in badpos if int(sel[i]) in fixed], np.int64)
+                src = np.asarray([pos_in_bad[int(sel[i])] for i in fix_sel],
+                                 np.int64)
+                rows[self._sel_tensor(fix_sel)] = \
+                    new_rows[self._sel_tensor(src)]
+                badpos = np.asarray(
+                    [i for i in badpos if int(sel[i]) not in fixed],
+                    np.int64)
+            new_bad = bad[~ok]
+            if new_bad.size == 0 or new_bad.size >= bad.size:
+                bad = new_bad
+                break
+            bad = new_bad
+        if bad.size:
+            self._recover["unrecoverable"] += int(bad.size)
+            self.last_bad_blocks = np.union1d(self.last_bad_blocks, bad)
+            if on_error == "repair":
+                why = ("archive carries no parity"
+                       if not self.archive.parity_group else
+                       "reconstruction re-verify failed (sibling or "
+                       "digest-table corruption)")
+                raise BlockDigestError(
+                    f"blocks {bad.tolist()} unrecoverable: {why}")
+            self.quarantined.update(int(b) for b in bad)
+            if badpos.size:
+                rows[self._sel_tensor(badpos)] = 0
+        return rows
+
     def _run_decode(self, raw, sel, verify: bool, pad_groups: bool,
                     on_error: str) -> torch.Tensor:
-        """Shared decode entry: on_error and range checks, then
-        `raw(sel_np, pad_groups)` and the digest check."""
+        """Shared decode entry: on_error and range checks, the
+        fault-injection hook, the quarantine pre-filter, then
+        `raw(sel_np, pad_groups)` and the verify/recover tail."""
         check_on_error(on_error)
         sel_np = np.asarray(sel, np.int64).reshape(-1)
         if sel_np.size and (sel_np.min() < 0
                             or sel_np.max() >= self.da.n_blocks):
             raise IndexError(f"block ids outside [0, {self.da.n_blocks})")
+        self.last_bad_blocks = np.zeros(0, np.int64)
+        self.last_suspect_blocks = np.zeros(0, np.int64)
         self.launch_rounds_last = []
-        if sel_np.size == 0:
-            return torch.zeros((0, self.da.block_size), dtype=torch.uint8,
+        if self.fault_hook is not None:
+            self.fault_hook()
+        keep = None
+        quar = np.zeros(0, np.int64)
+        work = sel_np
+        if self.quarantined and sel_np.size:
+            qmask = np.isin(sel_np, np.fromiter(self.quarantined, np.int64,
+                                                len(self.quarantined)))
+            if qmask.any():
+                if on_error != "partial":
+                    b = int(sel_np[qmask][0])
+                    raise BlockDigestError(
+                        f"block {b} is quarantined (unrecoverable in an "
+                        f"earlier decode); on_error='partial' degrades "
+                        f"instead of raising")
+                keep = np.flatnonzero(~qmask)
+                quar = np.unique(sel_np[qmask])
+                work = sel_np[keep]
+        if work.size:
+            rows = raw(work, pad_groups)
+            if verify:
+                rows = self._verify_or_recover(
+                    work, rows, on_error,
+                    lambda b: raw(np.asarray(b, np.int64).reshape(-1),
+                                  pad_groups))
+        else:
+            rows = torch.zeros((0, self.da.block_size), dtype=torch.uint8,
                                device=self.device)
-        rows = raw(sel_np, pad_groups)
-        if verify:
-            self.verify_rows(sel_np, rows)
+        if keep is not None:
+            full = torch.zeros((sel_np.size, self.da.block_size),
+                               dtype=torch.uint8, device=self.device)
+            if keep.size:
+                full[self._sel_tensor(keep)] = rows
+            rows = full
+            self.last_bad_blocks = np.union1d(self.last_bad_blocks, quar)
         return rows
 
     def _assemble_ra_groups(self, sel_np: np.ndarray, groups: list,
@@ -700,15 +837,21 @@ class Decoder:
 
         The reference streams one whole-file `ByteRange` through
         `StreamingExecutor`, whose every chunk is then exactly one
-        `chunk_blocks`-block piece decoded with `pad_groups=False`. This
-        loop runs the same block selections with the same padding, so the
-        counters equal the reference's, and copies each chunk's rows
-        straight into the output instead of through the span gather.
+        `chunk_blocks`-block piece decoded with `pad_groups=False` and
+        `on_error="raise"`. This loop runs the same block selections with
+        the same padding, so the counters equal the reference's, and
+        copies each chunk's rows straight into the output instead of
+        through the span gather.
 
         verify=True first checks `file_fnv` over the block digest table,
         then decodes chunk by chunk with every block digest-checked on the
-        device (pow2-padded depth buckets, as the reference's verify loop);
-        a mismatch raises `BlockDigestError`."""
+        device (pow2-padded depth buckets, as the reference's verify
+        loop). `on_error` picks the failure semantics: "raise"
+        (`BlockDigestError` on the first mismatch), "repair" (parity
+        reconstruction, raise only if unrecoverable), "partial"
+        (unrecoverable blocks quarantine and read back as zeros). A
+        corrupt digest TABLE (`file_fnv` fold mismatch) always raises: no
+        reference digests means nothing can be trusted or repaired."""
         check_on_error(on_error)
         da = self.da
         out = np.empty(da.raw_size, np.uint8)
@@ -721,6 +864,8 @@ class Decoder:
                     f"file digest mismatch: block digest table folds to "
                     f"{file_digest(a.block_fnv):#018x} != stored "
                     f"{a.file_fnv:#018x}")
+        else:
+            on_error = "raise"      # as the reference's streamed decode
         decode = (self.decode_blocks if mode2
                   else self.decode_blocks_host_entropy)
         step = int(chunk_blocks or da.n_blocks)
@@ -728,36 +873,8 @@ class Decoder:
         pos = 0
         for lo in range(0, da.n_blocks, step):
             sel = np.arange(lo, min(lo + step, da.n_blocks))
-            rows = decode(sel, verify=verify, pad_groups=verify)
-            keep = cols < da.block_len[lo:lo + sel.size].long()[:, None]
-            part = rows[keep]                 # rows cropped to block_len
-            # one device-to-host copy straight into the output
-            torch.from_numpy(out[pos:pos + part.numel()]).copy_(part)
-            pos += part.numel()
-        return out
-        step = int(chunk_blocks or da.n_blocks)
-        pos = 0
-        if not verify:
-            from repro_torch.api.address import ByteRange
-            from repro_torch.api.executors import StreamingExecutor
-            ex = StreamingExecutor(self._api_store(),
-                                   max_blocks_per_chunk=step, mode2=mode2)
-            for part in ex.chunks([ByteRange(0, da.raw_size)]):
-                out[pos:pos + part.size] = part
-                pos += part.size
-            return out
-        a = self.archive
-        if file_digest(a.block_fnv) != a.file_fnv:
-            raise BlockDigestError(
-                f"file digest mismatch: block digest table folds to "
-                f"{file_digest(a.block_fnv):#018x} != stored "
-                f"{a.file_fnv:#018x}")
-        decode = (self.decode_blocks if mode2
-                  else self.decode_blocks_host_entropy)
-        cols = torch.arange(da.block_size, device=self.device)[None, :]
-        for lo in range(0, da.n_blocks, step):
-            sel = np.arange(lo, min(lo + step, da.n_blocks))
-            rows = decode(sel, verify=True)
+            rows = decode(sel, verify=verify, pad_groups=verify,
+                          on_error=on_error)
             keep = cols < da.block_len[lo:lo + sel.size].long()[:, None]
             part = rows[keep]                 # rows cropped to block_len
             # one device-to-host copy straight into the output

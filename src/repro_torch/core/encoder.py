@@ -102,11 +102,12 @@ def encode(data: bytes | np.ndarray,
     APIs are origin-transparent; byte-addressed query-plane entry points
     assume origin == 0.
 
-    `parity_group=k` (k > 0) would XOR the compressed payload words of
-    every k-block group into a v4 parity tail; the parity builder belongs
-    to the self-healing slice of the port and is not here yet, so any
-    k > 0 raises `NotImplementedError`. 0 (default) writes a parity-free
-    archive, byte-identical to the v3 format.
+    `parity_group=k` (k > 0) XORs the compressed payload words of every
+    k-block group into a parity row stored in the v4 format tail: any
+    single corrupted block of a group is reconstructable on the device
+    (`repro_torch.resilience`). k=1 is payload replication; parity
+    overhead is roughly 1/k of the payload bytes. 0 (default) writes a
+    parity-free archive, byte-identical to the v3 format.
     """
     data = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.ascontiguousarray(data, np.uint8)
@@ -117,10 +118,6 @@ def encode(data: bytes | np.ndarray,
     validate_encode_params(block_size, mode, entropy, anchor_interval,
                            raw_size=n, origin=origin,
                            parity_group=parity_group)
-    if parity_group:
-        raise NotImplementedError(
-            "encode(parity_group>0): XOR-parity archives come with the "
-            "self-healing slice of the PyTorch port")
     # "ra" offsets are block-local; two planes hold them only while the
     # block fits 16 bits. Larger blocks (e.g. PAPER1_BLOCK_SIZE) switch to
     # four planes — storing a >=64 KiB offset in two would silently
@@ -280,7 +277,7 @@ def encode(data: bytes | np.ndarray,
 
     S = len(streams)
     assert S == N_STREAMS * n_blocks
-    return Archive(
+    a = Archive(
         block_size=block_size,
         raw_size=n,
         mode=mode,
@@ -301,3 +298,9 @@ def encode(data: bytes | np.ndarray,
         anchors=anchors,
         block_depth=block_depth,
     )
+    if parity_group:
+        # block b's payload = words[word_off[b,0] : word_off[b+1,0]) — the
+        # four streams lie consecutively, both entropy backends
+        from repro_torch.resilience.parity import with_parity
+        a = with_parity(a, parity_group)
+    return a

@@ -32,10 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.decoder import (Decoder, DeviceArchive, _decode_sel_core,
-                                      _decode_window_core, _pad_pow2,
-                                      check_on_error)
+                                      _decode_window_core, _pad_pow2)
 from repro_torch.core.format import Archive
 from repro_torch.core.index import ReadIndex, split_starts
+from repro_torch.resilience import check_on_error
 
 
 @dataclasses.dataclass
@@ -132,8 +132,11 @@ class CompressedResidentStore:
     decoded bytes never leave the device. `cache_policy` selects
     eviction/admission: "lru", "freq", "tinylfu" or an `EvictionPolicy`
     instance. Mode 1 fetches (`mode2=False`) run the staged path.
-    `verify=True` digest-checks every decoded block (the staged path),
-    raising `BlockDigestError` on a mismatch.
+    `verify=True` digest-checks every decoded block (the staged path) and
+    `on_error` picks what a mismatch does: "raise" (`BlockDigestError`),
+    "repair" (parity reconstruction) or "partial" (quarantine; the
+    addresses it touched are flagged in `last_corrupt`). Both are store
+    defaults every fetch entry point can override per call.
     """
 
     def __init__(self, archive: Archive, index: Optional[ReadIndex] = None,
@@ -210,11 +213,23 @@ class CompressedResidentStore:
                          verify: bool = False,
                          on_error: str = "raise") -> torch.Tensor:
         """(U,) unique block ids → (U, block_size) decoded rows, through the
-        device-resident block cache when enabled; `verify` digest-checks
-        the rows inside the decode."""
+        device-resident block cache when enabled. With `verify`, rows
+        digest-check inside the decode (recovering per `on_error`); any
+        block the decode reports corrupt (`Decoder.last_bad_blocks`) is
+        invalidated from the cache right after — the CachePlan registered
+        it resident BEFORE the decode, and a quarantined block's zero row
+        must never be served as a hit."""
         dec = self.decoder
         base = (dec.decode_blocks if mode2
                 else dec.decode_blocks_host_entropy)
+        if verify:
+            # an all-hit cache plan never reaches the decoder — clear the
+            # per-call outcome state here so stale bad-block reports from
+            # an earlier call cannot leak into this one's corrupt mask
+            dec.last_bad_blocks = np.zeros(0, np.int64)
+            dec.last_suspect_blocks = np.zeros(0, np.int64)
+        else:
+            on_error = "raise"      # as the reference: quarantine raises
 
         def decode(sel):
             return base(sel, verify=verify, on_error=on_error)
@@ -222,7 +237,10 @@ class CompressedResidentStore:
         if self._cache is None:
             return decode(_pad_pow2(uniq))[:uniq.size]
         if dec.da.mode != "global":
-            return self._cache.rows_for(uniq, decode)
+            rows = self._cache.rows_for(uniq, decode)
+            if verify and dec.last_bad_blocks.size:
+                self._cache.invalidate(dec.last_bad_blocks)
+            return rows
         # global: a miss decode materializes whole anchor windows — the
         # window rows the CachePlan did not ask for co-install into free
         # slots, so a scan over the window is ONE decode. Collection is
@@ -232,13 +250,35 @@ class CompressedResidentStore:
         dec.last_window_rows = []
         try:
             rows = self._cache.rows_for(uniq, decode)
+            if verify and dec.last_bad_blocks.size:
+                self._cache.invalidate(dec.last_bad_blocks)
+            # a repaired block's window was collected twice (pre-repair
+            # garbage first): every once-suspect block stays out of the
+            # co-install, not only the finally bad ones
+            bad = (dec.last_suspect_blocks if verify
+                   else np.zeros(0, np.int64))
             for first, wrows in dec.last_window_rows:
-                self._cache.install_extras(
-                    np.arange(first, first + wrows.shape[0]), wrows)
+                blks = np.arange(first, first + wrows.shape[0])
+                good = np.flatnonzero(~np.isin(blks, bad))
+                if good.size == blks.size:
+                    self._cache.install_extras(blks, wrows)
+                elif good.size:
+                    self._cache.install_extras(
+                        blks[good], wrows[torch.from_numpy(good).to(
+                            wrows.device)])
         finally:
             dec.collect_window_rows = False
             dec.last_window_rows = []
         return rows
+
+    @property
+    def last_corrupt(self) -> np.ndarray:
+        """Per-address corrupt mask of the most recent executor run
+        (bool[B]; all False unless on_error="partial" met unrecoverable
+        blocks)."""
+        if self._executor is None:
+            return np.zeros(0, bool)
+        return self._executor.last_corrupt
 
     # -------------------------------------------------------------- lookups
     def fetch_reads(self, ids: Sequence[int], mode2: bool = True,
@@ -250,7 +290,8 @@ class CompressedResidentStore:
         (B,) read ids → ((B, max_read_len) u8 zero-padded reads,
         (B,) i32 lengths), both on the device, in one selection decode.
         Requires a ReadIndex. `verify`/`on_error` override the store
-        defaults for this call."""
+        defaults for this call; per-read corrupt outcomes
+        (on_error="partial") are in `last_corrupt` afterwards."""
         if self.index is None:
             raise ValueError("fetch_reads requires a ReadIndex")
         ids_np = np.asarray(ids, np.int64).reshape(-1)

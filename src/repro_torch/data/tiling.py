@@ -13,7 +13,8 @@ corpus is encoded once and its archive is tiled. This is exact:
     hence every rANS stream, are unchanged.
 
 So `tile_archive(encode(corpus), T)` equals `encode(corpus * T)` field
-for field (a CPU test holds the two against each other at a small size).
+for field, parity tail included when the parity groups divide the
+blocks (a CPU test holds the two against each other at a small size).
 """
 from __future__ import annotations
 
@@ -47,9 +48,18 @@ def aligned_fastq(n_blocks: int, block_size: int, kind: str = "platinum",
 
 
 def tile_archive(a: Archive, tiles: int) -> Archive:
-    """The archive of `tiles` back-to-back copies of `a`'s data."""
-    if a.mode != "ra" or a.parity_group:
-        raise ValueError("only parity-free 'ra' archives tile")
+    """The archive of `tiles` back-to-back copies of `a`'s data.
+
+    A parity archive tiles when its `parity_group` divides `n_blocks`:
+    every parity group then lies inside one tile, so each tile's groups
+    XOR the same payloads into the same rows, and only the row offsets
+    shift by the parity words of the tiles before."""
+    if a.mode != "ra":
+        raise ValueError("only 'ra' archives tile")
+    if a.parity_group and a.n_blocks % a.parity_group:
+        raise ValueError(
+            f"parity_group={a.parity_group} must divide the tiled "
+            f"archive's {a.n_blocks} blocks, so no group straddles tiles")
     if tiles < 1 or tiles & (tiles - 1):
         raise ValueError(f"tiles={tiles} must be a power of two")
     if a.raw_size % a.block_size:
@@ -73,6 +83,11 @@ def tile_archive(a: Archive, tiles: int) -> Archive:
         file_fnv=file_digest(block_fnv),
         block_depth=(np.tile(a.block_depth, tiles)
                      if a.block_depth is not None else None),
+        parity_words=np.tile(a.parity_words, tiles),
+        parity_off=np.append(
+            (a.parity_off[None, :-1]
+             + (t * a.parity_words.size)[:, None]).reshape(-1),
+            np.int64(a.parity_words.size * tiles)),
     )
 
 

@@ -271,3 +271,106 @@ def test_streaming_peak_memory_on_the_card(cuda_device):
         assert ex.chunk_log == ref_ex.chunk_log
         assert all(c.resident_bytes <= budget for c in ex.chunk_log)
     assert peaks[1] <= 1.1 * peaks[0], peaks
+
+
+# ------------------------------------------- the self-healing and serving
+def _parity_pair(cuda_device, **kw):
+    """(card, CPU) decoders over two copies of one parity-4 archive."""
+    from repro_torch.core import format as fmt
+    data = make_fastq("platinum", n_reads=300, seed=21)
+    a = encode(data, block_size=2048, parity_group=4, **kw)
+    return (data, dec.Decoder(a, device=cuda_device),
+            dec.Decoder(fmt.deserialize(fmt.serialize(a)), device="cpu"))
+
+
+def test_xor_rebuild_on_the_card(cuda_device):
+    """The parity rebuild on the card patches the resident words to the
+    CPU rebuild's words, and both to the words before the flip."""
+    from repro_torch.resilience.faults import FaultInjector
+    _, gpu, cpu = _parity_pair(cuda_device)
+    clean = gpu.archive.words.copy()
+    blocks = []
+    for d in (gpu, cpu):
+        fi = FaultInjector(seed=3)
+        blocks = [fi.flip_payload_word(d)["block"] for _ in range(3)]
+    assert not np.array_equal(gpu.archive.words, clean)
+    for d in (gpu, cpu):
+        np.testing.assert_array_equal(d.heal_blocks(blocks), sorted(blocks))
+    torch.cuda.synchronize()
+    assert torch.equal(gpu.da.words.cpu(), cpu.da.words)
+    np.testing.assert_array_equal(gpu.archive.words, clean)
+    np.testing.assert_array_equal(
+        gpu.da.words.cpu().numpy().view(np.uint16), clean)
+
+
+@pytest.mark.parametrize("mode,on_error", [("ra", "repair"),
+                                           ("global", "repair"),
+                                           ("ra", "partial")])
+def test_repair_and_partial_decode_on_the_card(cuda_device, mode, on_error):
+    """A repaired or partial decode on the card: through both kernels,
+    the same bytes, `recover_info()`, quarantine and counters as on the
+    CPU; repaired output is the source."""
+    from repro_torch.core.format import block_payload_bounds
+    from repro_torch.resilience.faults import FaultInjector
+    data, gpu, cpu = _parity_pair(
+        cuda_device, mode=mode, anchor_interval=4 if mode == "global" else 0)
+    starts, ends = block_payload_bounds(gpu.archive)
+    blocks = [b for b in range(4, 8) if ends[b] > starts[b]][:2]
+    for d in (gpu, cpu):
+        fi = FaultInjector(seed=5)
+        for b in (blocks if on_error == "partial" else blocks[:1]):
+            fi.flip_payload_word(d, block=b)
+    before = dict(ops.LAUNCHES)
+    got = gpu.decode_all(chunk_blocks=16, verify=True, on_error=on_error)
+    assert ops.LAUNCHES["rans_decode"] > before["rans_decode"]
+    if mode == "ra":
+        assert ops.LAUNCHES["lz77_match"] > before["lz77_match"]
+    want = cpu.decode_all(chunk_blocks=16, verify=True, on_error=on_error)
+    np.testing.assert_array_equal(got, want)
+    assert gpu.recover_info() == cpu.recover_info()
+    assert gpu.quarantined == cpu.quarantined
+    assert gpu.decoded_blocks_last == cpu.decoded_blocks_last
+    assert gpu.launch_rounds_last == cpu.launch_rounds_last
+    if on_error == "repair":
+        assert got.tobytes() == data
+        assert gpu.recover_info()["reconstructed"] >= 1
+    else:
+        assert gpu.recover_info()["quarantined"] >= 1
+        with pytest.raises(dec.BlockDigestError, match="quarantined"):
+            gpu.decode_blocks(blocks, verify=True, on_error="repair")
+
+
+def test_serving_frontend_on_the_card(cuda_device):
+    """A small ServingFrontend cycle over an archive on the card: read
+    ids, byte ranges and a named region, two tenants on a partitioned
+    cache — the same payloads and counters as on the CPU, through both
+    kernels."""
+    from repro_torch.api.archive import GenomicArchive
+    from repro_torch.serving.admission import TenantPartitionPolicy
+    from repro_torch.serving.frontend import ServingFrontend
+    data = make_fastq("platinum", n_reads=400, seed=22)
+    addrs = [3, 17, 17, 399, slice(100, 5000), "SRR0.12:2-40", 250]
+    outs = []
+    for device in (cuda_device, "cpu"):
+        ga = GenomicArchive.from_bytes(
+            data, block_size=2048, device=device, cache_blocks=16,
+            cache_policy=TenantPartitionPolicy({"a": 4, "b": 4}))
+        fe = ServingFrontend({"w": ga}, max_batch=4)
+        fe.register_tenant("a", "w", priority=0)
+        fe.register_tenant("b", "w", priority=1)
+        before = dict(ops.LAUNCHES)
+        tickets = [fe.submit("ab"[i % 2], x) for i, x in enumerate(addrs)]
+        fe.drain()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        res = [fe.result(t) for t in tickets]
+        assert all(r.ok for r in res)
+        st = fe.stats()
+        outs.append(([bytes(r.payload) for r in res], st["tenants"],
+                     st["steps"], ga.cache_info()))
+        if device != "cpu":
+            assert all(launched.values()), launched
+    assert outs[0] == outs[1]
+    src = data
+    assert outs[0][0][0] == bytes(GenomicArchive.from_bytes(
+        src, block_size=2048, device="cpu")[3])
+    assert outs[0][0][4] == src[100:5000]

@@ -151,16 +151,23 @@ def test_fnv_rows_match_host_digest(fastq_noisy):
 
 
 def test_unported_paths_raise(fastq_noisy):
-    """Only the self-healing failure modes stay unported; Mode 1 and
-    global archives decode like the reference."""
+    """Every failure mode is ported: on a clean archive "repair" and
+    "partial" decode like the reference, an unknown mode raises in both;
+    out-of-range ids raise; Mode 1 and global archives decode like the
+    reference."""
     data = fastq_noisy[:5000]
     ra = renc.encode(data, block_size=2048)
     p = pdec.Decoder(port_archive(ra), device="cpu")
+    r = rdec.Decoder(ra, backend="ref")
     for how in ("repair", "partial"):
-        with pytest.raises(NotImplementedError, match="self-healing"):
-            p.decode_blocks([0], verify=True, on_error=how)
-        with pytest.raises(NotImplementedError, match="self-healing"):
-            p.decode_all(on_error=how)
+        np.testing.assert_array_equal(
+            p.decode_blocks([0], verify=True, on_error=how).numpy(),
+            np.asarray(r.decode_blocks([0], verify=True, on_error=how)))
+        assert p.decode_all(verify=True, on_error=how).tobytes() == data
+        assert p.recover_info() == r.recover_info()
+    for dec in (p, r):
+        with pytest.raises(ValueError, match="on_error"):
+            dec.decode_blocks([0], verify=True, on_error="ignore")
     with pytest.raises(IndexError):
         p.decode_blocks([ra.n_blocks])
     np.testing.assert_array_equal(

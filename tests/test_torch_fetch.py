@@ -140,6 +140,7 @@ def test_stats_and_unported_options(stores, fastq_platinum):
     a = ps.decoder.archive
     assert PStore(a, device="cpu", cache_blocks=8).cache_info()[
         "capacity"] == 8
-    with pytest.raises(NotImplementedError, match="self-healing"):
-        PStore(a, device="cpu", on_error="partial")
+    assert PStore(a, device="cpu", on_error="partial").on_error == "partial"
+    with pytest.raises(ValueError, match="on_error"):
+        PStore(a, device="cpu", on_error="ignore")
     _same(rs.fetch_reads([0], mode2=False), ps.fetch_reads([0], mode2=False))

@@ -53,8 +53,12 @@ def test_deserialize_roundtrip_and_corruption(fastq_noisy):
         pfmt.deserialize(buf[:len(buf) // 2])
     with pytest.raises(pfmt.CorruptArchiveError, match="magic"):
         pfmt.deserialize(b"NOTMAGIC" + buf[8:])
-    with pytest.raises(NotImplementedError, match="self-healing"):
-        penc.encode(fastq_noisy[:3000], block_size=2048, parity_group=2)
+    # the parity tail (ACEJAX05) encodes and round-trips byte for byte
+    pbuf = rfmt.serialize(renc.encode(fastq_noisy[:3000], block_size=2048,
+                                      parity_group=2))
+    got = pfmt.serialize(penc.encode(fastq_noisy[:3000], block_size=2048,
+                                     parity_group=2))
+    assert got == pbuf and pfmt.serialize(pfmt.deserialize(pbuf)) == pbuf
 
 
 def test_entropy_matches_reference():
@@ -110,13 +114,24 @@ def test_index_matches_reference(fastq_noisy):
             blk.astype(np.int64) * bs + rem, starts.astype(np.int64))
 
 
+@pytest.mark.parametrize("parity", [0, 3])
 @pytest.mark.parametrize("tiles", [1, 4])
-def test_tiled_archive_equals_encoding_the_tiled_corpus(tiles):
+def test_tiled_archive_equals_encoding_the_tiled_corpus(tiles, parity):
     corpus = tiling.aligned_fastq(6, 512, kind="noisy", seed=4)
     assert len(corpus) == 6 * 512
-    a = penc.encode(corpus, block_size=512)
+    a = penc.encode(corpus, block_size=512, parity_group=parity)
     assert pfmt.serialize(tiling.tile_archive(a, tiles)) == \
-        pfmt.serialize(penc.encode(corpus * tiles, block_size=512))
+        pfmt.serialize(penc.encode(corpus * tiles, block_size=512,
+                                   parity_group=parity))
+    # the smoke's parity store: the tail added to a parity-free archive
+    # equals encoding with it
+    from repro_torch.resilience.parity import with_parity
+    if parity:
+        assert pfmt.serialize(with_parity(penc.encode(
+            corpus, block_size=512), parity)) == pfmt.serialize(a)
+        with pytest.raises(ValueError, match="divide"):
+            tiling.tile_archive(penc.encode(corpus, block_size=512,
+                                            parity_group=4), 2)
     idx = pindex.ReadIndex.build(corpus, 512)
     np.testing.assert_array_equal(
         tiling.tile_index(idx, tiles, len(corpus)).starts,
@@ -135,6 +150,9 @@ def _imported_modules(path: pathlib.Path):
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    scanned = {p.parent.name for p in sources}
+    assert {"api", "core", "data", "kernels", "resilience",
+            "serving"} <= scanned, scanned
     for path in sources:
         for m in _imported_modules(path):
             assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
@@ -156,6 +174,11 @@ def test_import_and_fetch_leave_jax_unloaded():
         "out, lens = s.fetch_reads(np.array([0, 7, 59]))\n"
         "lo, hi, _ = idx.lookup(7)\n"
         "assert bytes(out[1, :int(lens[1])].numpy()) == data[lo:hi]\n"
+        "import repro_torch.resilience.chaos, repro_torch.serving.traffic\n"
+        "from repro_torch.serving import ServingFrontend, ReadBatcher\n"
+        "from repro_torch.resilience import FaultInjector\n"
+        "FaultInjector(1).flip_payload_word(s.decoder, block=0)\n"
+        "s.fetch_reads([0], verify=True, on_error='partial')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

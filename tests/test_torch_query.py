@@ -129,14 +129,19 @@ def test_empty_query_and_unported_entry_points(gas):
     assert rows.shape[0] == 0 and lens.shape[0] == 0
     for call, slice_name in (
             (lambda: GenomicArchive.create(b""), "autotuner"),
-            (lambda: pga.dataset(), "training data plane"),
-            (lambda: pga.recover_info(), "self-healing"),
-            (lambda: pga.last_corrupt, "self-healing"),
-            (lambda: GenomicArchive.from_bytes(
-                b"@a\nAC\n+\nFF\n", parity_group=2, device="cpu"),
-             "self-healing")):
+            (lambda: pga.dataset(), "training data plane")):
         with pytest.raises(NotImplementedError, match=slice_name):
             call()
+    # the self-healing surface is ported: the same counters and masks
+    rga = gas[0]
+    addrs = [ReadId(3), ByteRange(10, 900)]
+    pga.query(addrs, verify=True, on_error="partial")
+    rga.query([3, slice(10, 900)], verify=True, on_error="partial")
+    assert pga.recover_info() == rga.recover_info()
+    np.testing.assert_array_equal(pga.last_corrupt, rga.last_corrupt)
+    pg = GenomicArchive.from_bytes(b"@a\nAC\n+\nFF\n", parity_group=2,
+                                   device="cpu")
+    assert pg.store.decoder.archive.parity_group == 2
 
 
 def test_region_straddles_block_boundary_bit_identical(gas):

@@ -52,6 +52,22 @@ SERVE_KEYS = 1 << 16              # Zipf keys, spread over every read id
 SERVE_DEADLINE_US = 100_000.0     # the priority-0 tenant's deadline
 SERVE_REQUESTS = 4096             # requests a tenant ...
 SERVE_CONCURRENCY = 32            # ... with this many outstanding
+TRAIN_ARCH = "qwen2-1.5b"         # train phase: full width, full depth
+TRAIN_SEQ = 255                   # 256-byte records cut from the reads
+TRAIN_BATCH = 8
+TRAIN_PREFETCH = 2
+TRAIN_STEPS = 8                   # per-step steps, then
+TRAIN_WINDOWS = 2                 # windows of
+TRAIN_UNROLL = 2                  # steps each
+TRAIN_LR = 3e-4
+PLAIN_LAYERS = 2                  # train_plain: full width, 2 layers, B=1
+# train_plain bounds, relative: loss and global gradient norm, and the
+# relative norm of each leaf's gradient
+PLAIN_TOL = {"loss": 1e-3, "grad_norm": 1e-3, "grad": 5e-2}
+RESILIENT_READS = 2000            # train_resilient: corpus of the reduced
+RESILIENT_STEPS = 8               # config's run, its steps, checkpoints
+RESILIENT_CKPT_EVERY = 2          # every 2 steps and one failure
+RESILIENT_FAIL_AT = 5             # injected at step 5
 SEED = 12
 DEVICE = "cuda"
 # peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
@@ -1364,6 +1380,365 @@ def phase_serve(corpus, index, tiled):
     return launches
 
 
+def train_config(n_layers=None):
+    """The train phases' model: `TRAIN_ARCH` as published, or cut to
+    `n_layers` layers (widths unchanged)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def _check_tokens(batch, ids, corpus, starts, what: str) -> None:
+    """Each row's tokens and labels must be its read's source bytes
+    (tile and local id), cut or zero-padded to TRAIN_SEQ + 1."""
+    n_reads = starts.size - 1
+    rec = TRAIN_SEQ + 1
+    toks = batch["tokens"].cpu().numpy().reshape(-1, TRAIN_SEQ)
+    labs = batch["labels"].cpu().numpy().reshape(-1, TRAIN_SEQ)
+    if len(ids) != toks.shape[0]:
+        fail(f"{what}: {toks.shape[0]} rows for {len(ids)} ids")
+    for i, r in enumerate(ids):
+        lr = int(r) % n_reads
+        src = np.frombuffer(corpus[starts[lr]:starts[lr + 1]][:rec],
+                            np.uint8)
+        want = np.zeros(rec, np.int64)
+        want[:src.size] = src
+        if not (np.array_equal(toks[i], want[:-1])
+                and np.array_equal(labs[i], want[1:])):
+            fail(f"{what}: row {i} (read {int(r)}) is not the source bytes")
+
+
+def _profile_steps(fn, n: int) -> dict:
+    """Device busy share, top five device ops and the decode kernels'
+    share of `n` calls of `fn`, from the profiler's kernel records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops_ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            c, ms = ops_ms.get(e.name, (0, 0.0))
+            ops_ms[e.name] = (c + 1, ms + e.time_range.elapsed_us() / 1e3)
+    busy = sum(ms for _, ms in ops_ms.values())
+
+    def share(keys):
+        return sum(ms for k, (_, ms) in ops_ms.items()
+                   if any(w in k for w in keys))
+
+    decode = share(("rans_decode_kernel", "lz77_match_kernel"))
+    matmul = share(("gemm", "nvjet", "cutlass", "xmma", "sm90_"))
+    top = sorted(ops_ms.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"steps": n, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "device_launches": sum(c for c, _ in ops_ms.values()),
+            "decode_kernels_ms": decode,
+            "decode_kernels_share_of_busy": decode / max(busy, 1e-9),
+            "matmul_ms": matmul,
+            "matmul_share_of_busy": matmul / max(busy, 1e-9),
+            "top5_device_ops": [[k[:90], c, ms] for k, (c, ms) in top]}
+
+
+def phase_train(corpus, index, store):
+    """`TRAIN_ARCH` at full width and depth (bf16 params, fp32 AdamW
+    moments, on the card) trained from the 8 GiB resident store through
+    `GenomicArchive.dataset`: TRAIN_STEPS per-step steps, then
+    TRAIN_WINDOWS windows of TRAIN_UNROLL steps through the unrolled
+    step. Every batch's tokens are checked against the source bytes of
+    its sampled reads; losses must be finite and fall."""
+    import torch
+    from repro_torch.api import GenomicArchive
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step,
+                                                 make_unrolled_train_step)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for fp32 matmuls; the port's fp32 products need "
+             "it off")
+    starts = np.asarray(index.starts, np.int64)
+    ga = GenomicArchive(store)
+    cfg = train_config()
+    model = build_model(cfg)
+    total = TRAIN_STEPS + TRAIN_WINDOWS * TRAIN_UNROLL
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=total)
+    base = _reset_peak()
+    t0 = time.perf_counter()
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(SEED), opt)
+    sync()
+    init_s = time.perf_counter() - t0
+    leaves = (list(state["params"].values()) + list(state["opt"]["m"].values())
+              + list(state["opt"]["v"].values()))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params = sum(v.numel() for v in state["params"].values())
+    del leaves
+    ds = ga.dataset(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    prefetch=TRAIN_PREFETCH, seed=SEED)
+    step = make_train_step(model, opt, remat="none")
+    losses, step_ms, wait_ms, seen = [], [], [], []
+    run = {"state": state}
+    del state
+    ops.reset_launches()
+    it = iter(ds)
+
+    def one(i):
+        t0 = time.perf_counter()
+        b = next(it)
+        t1 = time.perf_counter()
+        run["state"], m = step(run["state"], b)
+        losses.append(float(m["loss"]))   # waits for the step
+        t2 = time.perf_counter()
+        seen.append((b, ds.sampler.sample(i)))
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    for i in range(TRAIN_STEPS - 2):
+        w_ms, s_ms = one(i)
+        wait_ms.append(w_ms)
+        step_ms.append(s_ms)
+    last_two = iter(range(TRAIN_STEPS - 2, TRAIN_STEPS))
+    profiled = _profile_steps(lambda: one(next(last_two)), 2)
+    pf = ds.prefetch_stats()
+    ds.close()
+    unrolled = make_unrolled_train_step(model, opt, remat="none")
+    window_ms = []
+    wit = ds.windows(TRAIN_UNROLL)
+    for w in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        win = next(wit)
+        first = ds.step - TRAIN_UNROLL
+        run["state"], ms = unrolled(run["state"], win)
+        losses.extend(ms["loss"].tolist())
+        window_ms.append((time.perf_counter() - t0) * 1e3)
+        seen.append((win, np.concatenate(
+            [ds.sampler.sample(first + u) for u in range(TRAIN_UNROLL)])))
+    pf_windows = ds.prefetch_stats()
+    ds.close()
+    launches = dict(ops.LAUNCHES)
+    peak = _peak_above(base)
+    for n, (b, ids) in enumerate(seen):
+        _check_tokens(b, ids, corpus, starts, f"train batch {n}")
+    state = run.pop("state")
+    timed = step_ms[1:] or step_ms
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    if "device_busy_ms" in profiled:      # against the unprofiled steps
+        profiled["busy_share_of_median_steps"] = (
+            profiled["device_busy_ms"] / (2 * float(np.median(timed))))
+    out = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": n_params,
+           "param_dtype": str(state["params"]["embed"].dtype),
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "n_reads": ga.n_reads, "init_s": init_s,
+           "state_bytes": state_bytes, "losses": losses,
+           "step_ms": step_ms, "step_ms_median": float(np.median(timed)),
+           "tokens_per_s": tokens / (float(np.median(timed)) / 1e3),
+           "consumer_wait_ms": wait_ms, "window_ms": window_ms,
+           "prefetch": pf, "prefetch_windows": pf_windows,
+           "peak_bytes_above_residency": peak, "profile": profiled,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "deterministic_algorithms":
+               torch.are_deterministic_algorithms_enabled(),
+           "batches_checked": len(seen),
+           "launches": launches}
+    emit(out)
+    if not all(np.isfinite(losses)):
+        fail(f"a train loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the train loss did not fall: {losses}")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_train_plain(store):
+    """The slice's card-against-plain check: `TRAIN_ARCH` at full width
+    cut to PLAIN_LAYERS layers, one batch of one 256-byte record, the
+    same weights on the card and on the CPU (the plain path): the loss
+    and the gradient norm within PLAIN_TOL["loss"] / ["grad_norm"]
+    relative, and the gradient of every leaf within PLAIN_TOL["grad"]
+    relative norm (the bf16 gradient bound of test_torch_models.py)."""
+    import torch
+    from repro_torch.api import GenomicArchive
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import global_norm
+    model = build_model(train_config(PLAIN_LAYERS))
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 1))
+    batch = GenomicArchive(store).dataset(
+        batch_size=1, seq_len=TRAIN_SEQ, prefetch=0, seed=SEED + 1).batch_at(0)
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        leaves = {k: v.to(dev).requires_grad_(True)
+                  for k, v in params.items()}
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss = model.loss(leaves, b, remat="none")
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+        gn = float(global_norm(grads))
+        got[dev] = (loss.item(), gn, time.perf_counter() - t0,
+                    {k: g.to("cpu", torch.float32) for k, g in grads.items()})
+        del leaves, grads, loss
+    (lc, gc, tc, grc), (lp, gp, tp, grp) = got[DEVICE], got["cpu"]
+    leaf_err = {k: float((grc[k] - grp[k]).norm() / grp[k].norm())
+                for k in grp}
+    worst = max(leaf_err, key=leaf_err.get)
+    out = {"phase": "train_plain", "n_layers": PLAIN_LAYERS,
+           "batch": 1, "seq_len": TRAIN_SEQ, "loss_card": lc,
+           "loss_plain": lp, "loss_rel_err": abs(lc - lp) / abs(lp),
+           "grad_norm_card": gc, "grad_norm_plain": gp,
+           "grad_norm_rel_err": abs(gc - gp) / abs(gp),
+           "grad_leaf_rel_err": leaf_err, "grad_leaf_worst": worst,
+           "card_s": tc, "plain_s": tp, "tolerance": PLAIN_TOL}
+    emit(out)
+    bad = [k for k, e in leaf_err.items() if not e <= PLAIN_TOL["grad"]]
+    if not (out["loss_rel_err"] <= PLAIN_TOL["loss"]
+            and out["grad_norm_rel_err"] <= PLAIN_TOL["grad_norm"]) or bad:
+        fail(f"the card's loss or gradients are not the plain path's "
+             f"(leaves past the bound: {bad}): {out}")
+    del params, grc, grp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resilient():
+    """The port's launcher flow (`repro_torch.launch.train`) at the reduced
+    config in a temp dir: the corpus encoded once and saved, reopened
+    without re-encoding, a compressed `Checkpointer` every
+    RESILIENT_CKPT_EVERY steps, one failure injected at
+    RESILIENT_FAIL_AT and recovered by a restore decoded on the card.
+    Against an uninterrupted run: the batches after the restart are
+    bit-identical and the losses within tolerance; the last checkpoint
+    restores bit-equal to the final state (that restore is the
+    `checkpoint` path)."""
+    import argparse
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpointer import (CheckpointConfig,
+                                                     Checkpointer)
+    from repro_torch.distributed.fault_tolerance import (
+        run_resilient_training)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = train_config().reduced()
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                      total_steps=RESILIENT_STEPS)
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        args = argparse.Namespace(
+            seq=TRAIN_SEQ, archive=os.path.join(d, "c.acegad"),
+            reads=RESILIENT_READS, block=BLOCK, cache_blocks=0,
+            device=DEVICE)
+        t0 = time.perf_counter()
+        cli.build_archive(args)                 # encode once and save
+        encode_s = time.perf_counter() - t0
+        ga = cli.build_archive(args)            # reopen: no re-encode
+
+        def run(ckdir, compress, fail_at):
+            ds = ga.dataset(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                            prefetch=TRAIN_PREFETCH, seed=SEED)
+            state = init_train_state(
+                model, torch.Generator(device=DEVICE).manual_seed(SEED), opt)
+            ck = Checkpointer(CheckpointConfig(directory=ckdir,
+                                               compress=compress))
+            inner = make_train_step(model, opt, remat="none")
+            seen, toks, losses, failed = [None], {}, {}, []
+
+            def hook(s):
+                seen[0] = s
+                if s == fail_at and not failed:
+                    failed.append(s)
+                    raise RuntimeError(f"injected failure at step {s}")
+
+            def step(st, b):
+                st, m = inner(st, b)
+                toks[seen[0]] = b["tokens"].cpu()
+                losses[seen[0]] = float(m["loss"])
+                return st, m
+
+            t0 = time.perf_counter()
+            final = run_resilient_training(
+                step, state, None, ck, n_steps=RESILIENT_STEPS,
+                ckpt_every=RESILIENT_CKPT_EVERY, loader=ds, fail_hook=hook,
+                log=lambda *a: None)
+            return final, ck, toks, losses, failed, time.perf_counter() - t0
+
+        clean, _, toks0, loss0, _, clean_s = run(
+            os.path.join(d, "clean"), False, None)
+        final, ck, toks1, loss1, failed, run_s = run(
+            os.path.join(d, "failing"), True, RESILIENT_FAIL_AT)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        restored = ck.restore(device=DEVICE)
+        restore_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        manifest = restored.pop("_manifest")
+    bit_equal = all(
+        torch.equal(restored[g][k], final[g][k])
+        for g in ("params",) for k in final[g]) and all(
+        torch.equal(restored["opt"][m][k], final["opt"][m][k])
+        for m in ("m", "v") for k in final["opt"][m]) and torch.equal(
+        restored["opt"]["step"], final["opt"]["step"])
+    same_batches = sorted(toks0) == sorted(toks1) == list(
+        range(RESILIENT_STEPS)) and all(
+        torch.equal(toks0[s], toks1[s]) for s in toks0)
+    rel = {s: abs(loss1[s] - loss0[s]) / abs(loss0[s]) for s in loss0}
+    out = {"phase": "train_resilient", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "steps": RESILIENT_STEPS, "ckpt_every": RESILIENT_CKPT_EVERY,
+           "failed_at": failed, "checkpoint_step": manifest["step"],
+           "payload_ratio": manifest.get("payload_ratio"),
+           "encode_s": encode_s, "clean_run_s": clean_s,
+           "failing_run_s": run_s, "restore_s": restore_s,
+           "restored_bit_equal": bit_equal,
+           "batches_bit_identical": same_batches,
+           "loss_rel_err_max": max(rel.values()),
+           "losses_clean": [loss0[s] for s in sorted(loss0)],
+           "losses_restarted": [loss1[s] for s in sorted(loss1)],
+           "deterministic_algorithms":
+               torch.are_deterministic_algorithms_enabled(),
+           "launches": launches}
+    emit(out)
+    if failed != [RESILIENT_FAIL_AT]:
+        fail(f"the injected failure did not fire once: {failed}")
+    if not bit_equal:
+        fail("the restored checkpoint is not the saved state")
+    if not same_batches:
+        fail("the batches after the restart are not the clean run's")
+    if out["loss_rel_err_max"] > 1e-2:
+        fail(f"losses after the restart are not the clean run's: {rel}")
+    return launches, out
+
+
+def phase_chaos():
+    """The chaos lane on the card: every scenario, prefetch crash
+    included."""
+    import contextlib
+    import io
+    from repro_torch.resilience import chaos
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = chaos.main(["--smoke", "--device", DEVICE])
+    lines = buf.getvalue().splitlines()
+    emit({"phase": "chaos", "rc": rc, "summary": lines[-1] if lines else ""})
+    want = f"{len(chaos.SCENARIOS)}/{len(chaos.SCENARIOS)} scenarios passed"
+    if rc or not lines or want not in lines[-1]:
+        fail(f"chaos smoke on the card: {lines[-6:]}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1387,11 +1762,17 @@ def main() -> None:
     paths["partial"] = phase_partial(corpus, index, heal_store)
     del heal_store
     paths["serve"] = phase_serve(corpus, index, tiled)
+    paths["train"], train = phase_train(corpus, index, store)
+    plain = phase_train_plain(store)
+    paths["checkpoint"], resilient = phase_train_resilient()
+    phase_chaos()
     # the paths each kernel runs on, and those it must not
     runs_on = {"rans_decode": ("decode", "fetch", "global", "stream",
-                               "cache", "heal", "partial", "serve"),
+                               "cache", "heal", "partial", "serve",
+                               "train", "checkpoint"),
                "lz77_match": ("decode", "fetch", "mode1", "stream",
-                              "cache", "heal", "partial", "serve")}
+                              "cache", "heal", "partial", "serve",
+                              "train", "checkpoint")}
     for k, on in runs_on.items():
         for path, counts in paths.items():
             if (path in on) != bool(counts[k]):
@@ -1400,7 +1781,17 @@ def main() -> None:
           "global_resolve_ms_per_window": window["resolve_ms_per_window"],
           "global_resolve_share": window["resolve_share_of_device"],
           "xor_rebuild_device_ms": profile["xor_rebuild"]["device_busy_ms"],
-          "xor_rebuild_wall_ms": xor_wall_ms})
+          "xor_rebuild_wall_ms": xor_wall_ms,
+          "train_step_ms_median": train["step_ms_median"],
+          "train_tokens_per_s": train["tokens_per_s"],
+          "train_peak_bytes_above_residency":
+              train["peak_bytes_above_residency"],
+          "train_plain_loss_rel_err": plain["loss_rel_err"],
+          "train_plain_grad_norm_rel_err": plain["grad_norm_rel_err"],
+          "train_plain_grad_leaf_rel_err_max":
+              plain["grad_leaf_rel_err"][plain["grad_leaf_worst"]],
+          "train_resilient_loss_rel_err_max":
+              resilient["loss_rel_err_max"]})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

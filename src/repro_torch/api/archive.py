@@ -210,8 +210,22 @@ class GenomicArchive:
     def plan(self, addrs: Sequence[Address]) -> DecodePlan:
         return self.planner.plan(addrs)
 
-    def dataset(self, *args, **kwargs):
-        raise _not_in_slice("GenomicArchive.dataset", "training data plane")
+    def dataset(self, batch_size: int = 8, seq_len: Optional[int] = None,
+                sampler="uniform", prefetch: int = 2, seed: int = 0,
+                sync_ready: bool = True, verify: Optional[bool] = None,
+                on_error: Optional[str] = None):
+        """Training-grade loader over this archive: an `ArchiveDataset`
+        whose batches are int32 `{"tokens", "labels"}` tensors on the
+        archive's device, every batch one DecodePlan through this query
+        plane, decoded `prefetch` batches ahead on a worker (see
+        `repro_torch.api.dataset`). `seq_len` defaults to the fixed
+        record size minus one; variable-length records need it, and are
+        cut or zero-padded to `seq_len + 1` bytes."""
+        from repro_torch.api.dataset import ArchiveDataset
+        return ArchiveDataset(self, batch_size=batch_size, seq_len=seq_len,
+                              sampler=sampler, prefetch=prefetch, seed=seed,
+                              sync_ready=sync_ready, verify=verify,
+                              on_error=on_error)
 
     def query(self, addrs: Sequence[Address], mode2: bool = True,
               verify: Optional[bool] = None, on_error: Optional[str] = None

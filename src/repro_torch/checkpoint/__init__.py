@@ -1,0 +1,1 @@
+"""Compressed checkpoints in the reference's on-disk format."""

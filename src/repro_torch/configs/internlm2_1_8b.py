@@ -1,0 +1,12 @@
+"""Assigned architecture config — exact numbers from the assignment.
+
+# [arXiv:2403.17297; hf]
+"""
+from repro_torch.configs.base import ModelConfig, register
+
+_FULL_ATTN_SKIP = ("long_500k",)
+
+INTERNLM2_18B = register(ModelConfig(
+    name="internlm2-1.8b", family="dense", n_layers=24, d_model=2048,
+    n_heads=16, n_kv_heads=8, d_ff=8192, vocab=92544,
+    rope_theta=1_000_000.0, skip_shapes=_FULL_ATTN_SKIP))

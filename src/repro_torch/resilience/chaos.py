@@ -135,11 +135,54 @@ def scenario_transient(data: bytes, seed: int, device) -> None:
     _log(f"transient: {failures} injected failures, retry clean")
 
 
-# The reference's prefetch-crash scenario waits for the port's prefetch
-# worker (the training data plane slice), its shard-loss scenario for
-# mesh-partitioned residency (the multi-GPU slice).
+def scenario_prefetch_crash(data: bytes, seed: int, device) -> None:
+    """Prefetch producer crash mid-stream: the consumer sees a typed
+    `PrefetchWorkerError`, restarts the worker at the failed step (pure
+    producers make this safe), and the delivered stream is bit-identical
+    to an uncrashed run."""
+    import queue as _q
+
+    from repro_torch.data.prefetch import AsyncPrefetcher, PrefetchWorkerError
+    from repro_torch.resilience.faults import FaultInjector
+    st = _mk(data, "ra", "rans", device)
+
+    def produce(step):
+        ids = np.arange(step % 4, st.index.n_reads, 4)
+        return st.fetch_reads(ids)[0].cpu().numpy()
+
+    want = [produce(s) for s in range(8)]
+    fi = FaultInjector(seed=seed)
+    crashy = fi.crashing_producer(produce, at_step=5)
+    got, step, crashes = [], 0, 0
+    pf = AsyncPrefetcher(crashy, start_step=step, depth=2)
+    try:
+        while len(got) < 8:
+            try:
+                s, item = pf.get(timeout=30.0)
+            except PrefetchWorkerError:
+                crashes += 1
+                pf.stop()
+                # restart at the first undelivered step — purity of the
+                # producer makes the resumed stream bit-identical
+                pf = AsyncPrefetcher(crashy, start_step=step, depth=2)
+                continue
+            except _q.Empty as e:
+                raise AssertionError("prefetch stream stalled") from e
+            assert s == step, f"out-of-order step {s} != {step}"
+            got.append(item)
+            step += 1
+    finally:
+        pf.stop()
+    assert crashes == 1, f"expected exactly 1 crash, saw {crashes}"
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b), "restarted stream NOT bit-identical"
+    _log("prefetch crash: 1 crash, worker restarted, stream bit-exact")
+
+
+# The reference's shard-loss scenario waits for mesh-partitioned residency
+# (the multi-GPU slice).
 SCENARIOS = (scenario_flip_repair, scenario_partial_serving,
-             scenario_transient)
+             scenario_transient, scenario_prefetch_crash)
 
 
 def smoke_data(n_bytes: int) -> bytes:

@@ -374,3 +374,117 @@ def test_serving_frontend_on_the_card(cuda_device):
     assert outs[0][0][0] == bytes(GenomicArchive.from_bytes(
         src, block_size=2048, device="cpu")[3])
     assert outs[0][0][4] == src[100:5000]
+
+
+# ------------------------------------------------------ training slice
+def _reduced_lm():
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    return build_model(get_config("qwen2-1.5b").reduced())
+
+
+def _rel(want: torch.Tensor, got: torch.Tensor) -> float:
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, dtype):
+    """One reduced-config step from the same weights and batch: loss and
+    gradient norm within the tolerance of the CPU's, and the new params
+    held by relative norm (worst readings on an H100 in brackets; the
+    test prints them under `pytest -s`): fp32, each leaf's update
+    (new minus initial params) within 1e-2 [1.8e-3] and its params
+    within 1e-4 [3.1e-6]; bf16, the bounds of `test_torch_training.py`:
+    each leaf's params within 2^-5 [3.1e-3] and the update of all
+    leaves within 0.15 [9.0e-2]. A leaf that never moved reads 1."""
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model = _reduced_lm()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = model.init(torch.Generator().manual_seed(4),
+                        getattr(torch, dtype))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (4, 65)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev, copy=True) for k, v in params.items()}  # donated
+        st = {"params": p, "opt": init_opt_state(p)}
+        b = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        st, m = make_train_step(model, opt, remat="none")(st, b)
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: v.float().cpu() for k, v in st["params"].items()})
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(cuda_device)]
+    p0 = {k: v.float() for k, v in params.items()}
+    prel = {k: _rel(pc[k], pg[k]) for k in pc}
+    urel = {k: _rel(pc[k] - p0[k], pg[k] - p0[k]) for k in pc}
+    whole = _rel(torch.cat([(pc[k] - p0[k]).ravel() for k in pc]),
+                 torch.cat([(pg[k] - p0[k]).ravel() for k in pc]))
+    print(f"card vs cpu {dtype}: loss {abs(lg - lc) / abs(lc):.3e} "
+          f"grad_norm {abs(gg - gc) / abs(gc):.3e} "
+          f"params {max(prel.values()):.3e} ({max(prel, key=prel.get)}) "
+          f"update {max(urel.values()):.3e} ({max(urel, key=urel.get)}) "
+          f"whole update {whole:.3e}")
+    tol_loss = 1e-4 if dtype == "float32" else 2e-2
+    assert abs(lg - lc) <= tol_loss * abs(lc), (lg, lc)
+    assert abs(gg - gc) <= 5e-2 * abs(gc), (gg, gc)
+    for k in pc:
+        if dtype == "float32":
+            assert urel[k] <= 1e-2 and prel[k] <= 1e-4, (k, urel[k], prel[k])
+        else:
+            assert prel[k] <= 2 ** -5, (k, prel[k])
+    assert dtype == "float32" or whole <= 0.15, whole
+
+
+def test_dataset_batches_on_the_card_are_the_source_bytes(cuda_device):
+    """Prefetched batches decoded on the worker's CUDA stream: int32
+    tensors on the card, equal to the source bytes (cut or zero-padded)
+    and to the CPU's batches; both kernels launched."""
+    from repro_torch.api.archive import GenomicArchive
+    data = make_fastq("platinum", n_reads=600, seed=31)
+    seq = 300
+    ga = GenomicArchive.from_bytes(data, block_size=4096, device=cuda_device)
+    cpu = GenomicArchive.from_bytes(data, block_size=4096, device="cpu")
+    starts = ga.store.index.starts.astype(np.int64)
+    before = dict(ops.LAUNCHES)
+    ds = ga.dataset(batch_size=8, seq_len=seq, prefetch=2, seed=5)
+    ref_ds = cpu.dataset(batch_size=8, seq_len=seq, prefetch=0, seed=5)
+    it = iter(ds)
+    for step in range(6):
+        b = next(it)
+        assert b["tokens"].device.type == "cuda"
+        assert b["tokens"].dtype == torch.int32
+        want = ref_ds.batch_at(step)
+        assert torch.equal(b["tokens"].cpu(), want["tokens"])
+        assert torch.equal(b["labels"].cpu(), want["labels"])
+        rows = torch.cat([b["tokens"][:, :1], b["labels"]], 1).cpu().numpy()
+        for row, r in zip(rows, ds.sampler.sample(step)):
+            src = np.frombuffer(data[starts[r]:starts[r + 1]], np.uint8)
+            src = src[:seq + 1]
+            assert (row[:src.size] == src).all() and not row[src.size:].any()
+    ds.close()
+    assert all(ops.LAUNCHES[k] > before[k] for k in before)
+
+
+def test_checkpoint_restore_on_the_card(cuda_device, tmp_path):
+    """A compressed checkpoint restores by decoding on the card (both
+    kernels), bit-equal to what was saved, bf16 and int32 included."""
+    from repro_torch.checkpoint.checkpointer import (CheckpointConfig,
+                                                     Checkpointer)
+    from repro_torch.training.optimizer import init_opt_state
+    model = _reduced_lm()
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(2))
+    state = {"params": params, "opt": init_opt_state(params)}
+    ck = Checkpointer(CheckpointConfig(directory=str(tmp_path)))
+    ck.save(3, state, extra={"step": 3})
+    before = dict(ops.LAUNCHES)
+    out = ck.restore(device=cuda_device)
+    assert all(ops.LAUNCHES[k] > before[k] for k in before)
+    assert out.pop("_manifest")["extra"]["step"] == 3
+    for k, v in params.items():
+        got = out["params"][k]
+        assert got.device.type == "cuda" and got.dtype == v.dtype
+        assert torch.equal(got, v), k
+    assert out["opt"]["step"].dtype == torch.int32
+    assert int(out["opt"]["step"]) == 0

@@ -151,8 +151,9 @@ def _imported_modules(path: pathlib.Path):
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
     scanned = {p.parent.name for p in sources}
-    assert {"api", "core", "data", "kernels", "resilience",
-            "serving"} <= scanned, scanned
+    assert {"api", "checkpoint", "configs", "core", "data", "distributed",
+            "kernels", "launch", "models", "resilience", "serving",
+            "training"} <= scanned, scanned
     for path in sources:
         for m in _imported_modules(path):
             assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
@@ -179,6 +180,12 @@ def test_import_and_fetch_leave_jax_unloaded():
         "from repro_torch.resilience import FaultInjector\n"
         "FaultInjector(1).flip_payload_word(s.decoder, block=0)\n"
         "s.fetch_reads([0], verify=True, on_error='partial')\n"
+        "import repro_torch.launch.train\n"
+        "from repro_torch.api.archive import GenomicArchive\n"
+        "ga = GenomicArchive.from_records(data, 64, block_size=2048,\n"
+        "                                 device='cpu')\n"
+        "b = next(iter(ga.dataset(batch_size=2, prefetch=1)))\n"
+        "assert b['tokens'].shape == (2, 63)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

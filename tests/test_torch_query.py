@@ -127,13 +127,19 @@ def test_empty_query_and_unported_entry_points(gas):
     _, pga, _ = gas
     rows, lens = pga.query([])
     assert rows.shape[0] == 0 and lens.shape[0] == 0
-    for call, slice_name in (
-            (lambda: GenomicArchive.create(b""), "autotuner"),
-            (lambda: pga.dataset(), "training data plane")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            call()
-    # the self-healing surface is ported: the same counters and masks
+    with pytest.raises(NotImplementedError, match="autotuner"):
+        GenomicArchive.create(b"")
+    # the training data plane is ported: the same refusal of variable
+    # records without seq_len, the same batches with it
     rga = gas[0]
+    for ga in (pga, rga):
+        with pytest.raises(ValueError, match="seq_len"):
+            ga.dataset()
+    got = pga.dataset(batch_size=3, seq_len=50, prefetch=0).batch_at(2)
+    want = rga.dataset(batch_size=3, seq_len=50, prefetch=0).batch_at(2)
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    # the self-healing surface is ported: the same counters and masks
     addrs = [ReadId(3), ByteRange(10, 900)]
     pga.query(addrs, verify=True, on_error="partial")
     rga.query([3, slice(10, 900)], verify=True, on_error="partial")

@@ -418,4 +418,4 @@ def test_chaos_smoke_lane(capsys):
     from repro_torch.resilience import chaos
     assert chaos.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "3/3 scenarios passed" in out
+    assert "4/4 scenarios passed" in out

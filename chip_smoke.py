@@ -14,8 +14,13 @@ self-healing and serving planes: an 8 GiB parity-protected store healed
 on the card (`on_error="repair"` through decode_all, cached fetches and
 a stream), a parity group corrupted twice and served as typed
 `ReadCorrupt` results (`on_error="partial"`), and two tenants of a
-`ServingFrontend` over the 8 GiB store under closed-loop traffic. It
-checks every decoded and served byte against the source. Each phase
+`ServingFrontend` over the 8 GiB store under closed-loop traffic. Then
+the model paths: qwen2-1.5b at full width and depth trained from the
+8 GiB store (with compressed checkpoints at the reduced config), the
+encode autotuner swept on the card, and the same model served by
+`ServeSession` (KV-cache decode) from the 8 GiB store, each held against
+the CPU at 2 layers; and the serving launcher in a process of its own.
+It checks every decoded and served byte against the source. Each phase
 prints one JSON line; the last line is `{"ok": true, "device": {...}}`.
 Any mismatch or failure exits non-zero; without a CUDA card it exits
 non-zero at once.
@@ -68,6 +73,13 @@ RESILIENT_READS = 2000            # train_resilient: corpus of the reduced
 RESILIENT_STEPS = 8               # config's run, its steps, checkpoints
 RESILIENT_CKPT_EVERY = 2          # every 2 steps and one failure
 RESILIENT_FAIL_AT = 5             # injected at step 5
+TUNE_SAMPLE = 1 << 20             # tune: the whole records of the "ra"
+TUNE_ITERS = 2                    # corpus's first MiB, best of 2 timings
+SERVE_B = 16                      # serve_model: TRAIN_ARCH as published,
+SERVE_CTX = 128                   # B uniform read ids, contexts of this
+SERVE_NEW = 32                    # many bytes, this many new tokens
+PLAIN_SERVE = {"B": 2, "ctx": 32, "new": 8}   # serve_model_plain, at
+PLAIN_SERVE_TOL = 1e-2            # PLAIN_LAYERS: logits' relative norm
 SEED = 12
 DEVICE = "cuda"
 # peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
@@ -183,10 +195,10 @@ def phase_kernels_vs_plain():
     """Both kernels against their plain versions, byte for byte, at
     blocks of 512 B, 1000 B and 3001 B (rows that are not a multiple of 16
     or 8 bytes, so the match kernel's per-element rounds and per-byte
-    stores), 16 KiB, 32 KiB (the last 16-bit pointer size) and 1 MiB (4
-    offset planes, i32 pointers in global scratch), for rANS CTAs of 1, 4,
-    8 and 16 blocks, with the archive's rounds, the early-exit resolver and
-    one round short."""
+    stores), 16 KiB, 32 KiB (the last 16-bit pointer size), 64 KiB (the
+    autotuner's larger block: 4 offset planes, i32 pointers in global
+    scratch) and 1 MiB, for rANS CTAs of 1, 4, 8 and 16 blocks, with the
+    archive's rounds, the early-exit resolver and one round short."""
     import torch
     from repro_torch.core import decoder as dec
     from repro_torch.core.encoder import encode
@@ -198,6 +210,7 @@ def phase_kernels_vs_plain():
                                  (3001, 1200, "platinum"),
                                  (16 * 1024, 5000, "platinum"),
                                  (32 * 1024, 5000, "noisy"),
+                                 (64 * 1024, 5000, "platinum"),
                                  (1024 * 1024, 12000, "platinum")):
         data = make_fastq(kind, n_reads=n_reads, seed=SEED)
         a = encode(data, block_size=block)
@@ -1641,7 +1654,7 @@ def phase_train_resilient():
         args = argparse.Namespace(
             seq=TRAIN_SEQ, archive=os.path.join(d, "c.acegad"),
             reads=RESILIENT_READS, block=BLOCK, cache_blocks=0,
-            device=DEVICE)
+            device=DEVICE, tune_target=None)
         t0 = time.perf_counter()
         cli.build_archive(args)                 # encode once and save
         encode_s = time.perf_counter() - t0
@@ -1739,6 +1752,290 @@ def phase_chaos():
         fail(f"chaos smoke on the card: {lines[-6:]}")
 
 
+def phase_tune(corpus, index):
+    """The encode autotuner on the card: the default grid (16 and 64 KiB
+    blocks x anchor 0/4 x rANS/raw) swept on the whole records of the
+    "ra" corpus's first TUNE_SAMPLE bytes, TUNE_ITERS timings a point,
+    once for each target. Every point's ratio must be a CPU encode's of
+    its profile; each chosen profile's `GenomicArchive.create` must
+    decode the sample bit for bit on the card."""
+    from repro_torch.api import GenomicArchive
+    from repro_torch.core.encoder import encode
+    from repro_torch.kernels import ops
+    from repro_torch.tune import autotune
+    starts = np.asarray(index.starts, np.int64)
+    cut = int(starts[np.searchsorted(starts, TUNE_SAMPLE, "right") - 1])
+    sample = corpus[:cut]
+    ops.reset_launches()
+    sweeps = {}
+    for target in ("seek", "ratio", "throughput"):
+        t0 = time.perf_counter()
+        r = autotune(sample, target=target, sample_bytes=TUNE_SAMPLE,
+                     iters=TUNE_ITERS, device=DEVICE)
+        sweeps[target] = (r, time.perf_counter() - t0)
+    cpu_ratio = {p.profile: encode(sample, profile=p.profile).ratio
+                 for p in sweeps["seek"][0].points}
+    decoded = {}
+    for r, _ in sweeps.values():
+        if r.profile not in decoded:
+            ga = GenomicArchive.create(sample, profile=r.profile,
+                                       device=DEVICE)
+            decoded[r.profile] = (ga.profile == r.profile
+                                  and ga.store.decoder.decode_all()
+                                  .tobytes() == sample)
+    launches = dict(ops.LAUNCHES)
+    wrong = [(t, p.profile.describe(), p.ratio) for t, (r, _) in
+             sweeps.items() for p in r.points
+             if p.ratio != cpu_ratio[p.profile]]
+    emit({"phase": "tune", "sample_bytes": len(sample),
+          "iters": TUNE_ITERS, "sweeps": {
+              t: {"sweep_s": s, "chosen": r.profile.describe(),
+                  "skipped": [reason for _, reason in r.skipped],
+                  "points": [{"profile": p.profile.describe(),
+                              "ratio": p.ratio, "seek_us": p.seek_us,
+                              "decode_GBps": p.decode_GBps,
+                              "on_frontier": p.on_frontier}
+                             for p in r.points],
+                  "frontier_table": r.table()}
+              for t, (r, s) in sweeps.items()},
+          "ratio_equals_cpu_encode": not wrong,
+          "create_decodes_bit_for_bit": {p.describe(): ok
+                                         for p, ok in decoded.items()},
+          "launches": launches})
+    if wrong:
+        fail(f"tune: ratios differ from a CPU encode: {wrong}")
+    if not all(decoded.values()):
+        fail(f"tune: GenomicArchive.create does not decode the sample: "
+             f"{decoded}")
+    if any(len(r.points) != 8 for r, _ in sweeps.values()):
+        fail("tune: the default grid did not measure 8 points")
+    return launches
+
+
+def _check_contexts(ctx, ids, corpus, starts, width: int, what: str):
+    """Each context row must be its read's source bytes (tile and local
+    id), cut or zero-padded to `width`."""
+    n_reads = starts.size - 1
+    got = ctx.cpu().numpy()
+    if got.shape != (len(ids), width):
+        fail(f"{what}: contexts of shape {got.shape}")
+    for row, r in zip(got, ids):
+        lr = int(r) % n_reads
+        src = np.frombuffer(corpus[starts[lr]:starts[lr + 1]][:width],
+                            np.uint8)
+        want = np.zeros(width, np.int64)
+        want[:src.size] = src
+        if not np.array_equal(row, want):
+            fail(f"{what}: the context of read {int(r)} is not its bytes")
+
+
+def phase_serve_model(corpus, index, store):
+    """`TRAIN_ARCH` at full width and depth (bf16 weights of a seeded
+    init) served by `ServeSession.serve_reads` from the 8 GiB store:
+    SERVE_B uniform read ids, SERVE_CTX-byte contexts primed one decode
+    step a byte, SERVE_NEW greedy tokens. Per-step device times come from
+    CUDA events recorded after each step (no host wait between steps);
+    time to first token is the host wall of a call with one new token
+    (fetch, the SERVE_CTX-step prime, argmax, the copy to the host),
+    once cold and once warm. Two decode steps are profiled. The peak
+    device bytes above residency (weights included) are read from after
+    the init, whose fp32 temporaries are reported apart."""
+    import torch
+    from repro_torch.api import GenomicArchive
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import ServeConfig, ServeSession
+    starts = np.asarray(index.starts, np.int64)
+    ga = GenomicArchive(store)
+    cfg = train_config()
+    model = build_model(cfg)
+    base = _reset_peak()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 2))
+    sync()
+    init_s = time.perf_counter() - t0
+    # the init's fp32 temporaries (a 1.5 GB stack) are not serving's
+    init_peak = _peak_above(base)
+    _reset_peak()
+    n_params = sum(v.numel() for v in params.values())
+    sess = ServeSession(model, params,
+                        ServeConfig(max_seq=SERVE_CTX + SERVE_NEW,
+                                    max_new_tokens=SERVE_NEW), store=ga)
+    rng = np.random.default_rng(SEED + 2)
+    warm_ids, ids = (rng.integers(0, ga.n_reads, SERVE_B) for _ in range(2))
+    seen, events = [], []
+    generate, decode = sess.generate, sess._decode
+
+    def recording_generate(ctx, n=None):
+        seen.append(ctx)
+        return generate(ctx, n)
+
+    def timed_decode(*a):
+        out = decode(*a)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
+
+    sess.generate, sess._decode = recording_generate, timed_decode
+    ops.reset_launches()
+    ttft_ms = []
+    for batch in (warm_ids, ids):
+        t0 = time.perf_counter()
+        first = sess.serve_reads(batch, SERVE_CTX, 1)
+        ttft_ms.append((time.perf_counter() - t0) * 1e3)
+    seen.clear()
+    events.clear()
+    t0 = time.perf_counter()
+    toks = sess.serve_reads(ids, SERVE_CTX, SERVE_NEW)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    prime_ms, step_ms = gaps[:SERVE_CTX - 1], gaps[SERVE_CTX - 1:]
+    if len(step_ms) != SERVE_NEW - 1:
+        fail(f"serve_model: {len(events)} decode steps timed")
+    ctx = seen[0]
+    _check_contexts(ctx, ids, corpus, starts, SERVE_CTX,
+                    "serve_model")
+    sess.generate, sess._decode = generate, decode
+    st = sess.prime(ctx)
+    cache = st["cache"]
+    cur = torch.argmax(st["logits"], dim=-1)[:, None].to(torch.int32)
+    if not np.array_equal(cur.cpu().numpy()[:, 0], toks[:, 0]) \
+            or not np.array_equal(first[:, 0], toks[:, 0]):
+        fail("serve_model: the first token differs between calls")
+
+    def one_step():
+        with torch.no_grad():
+            model.decode_step(params, cache, cur)
+
+    profiled = _profile_steps(one_step, 2)
+    peak = _peak_above(base)
+    med = float(np.median(step_ms))
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("k", "v"))
+    out = {"phase": "serve_model", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": n_params,
+           "param_dtype": str(params["embed"].dtype), "init_s": init_s,
+           "batch": SERVE_B, "ctx_bytes": SERVE_CTX,
+           "new_tokens": SERVE_NEW, "n_reads": ga.n_reads,
+           "decode_step_ms_median": med, "decode_step_ms": step_ms,
+           "prime_step_ms_median": float(np.median(prime_ms)),
+           "tokens_per_s": SERVE_B / (med / 1e3),
+           "serve_reads_s": wall_s,
+           "serve_reads_tokens_per_s": SERVE_B * SERVE_NEW / wall_s,
+           "ttft_ms_cold": ttft_ms[0], "ttft_ms": ttft_ms[1],
+           "kv_cache_bytes": kv_bytes,
+           "param_bytes": sum(v.numel() * v.element_size()
+                              for v in params.values()),
+           "init_peak_bytes_above_residency": init_peak,
+           "peak_bytes_above_residency": peak, "profile": profiled,
+           "contexts_checked": len(ids), "launches": launches}
+    emit(out)
+    if toks.shape != (SERVE_B, SERVE_NEW) or not (
+            (toks >= 0).all() and (toks < cfg.vocab).all()):
+        fail(f"serve_model: tokens {toks.shape} out of range")
+    del params, cache, st, sess, model
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _teacher_forced(model, params, seq, max_seq):
+    """Logits of every decode step fed `seq` (B, T), as (T, B, V) fp32 on
+    the host."""
+    import torch
+    cache = model.init_cache(seq.shape[0], max_seq, device=seq.device)
+    out = []
+    with torch.no_grad():
+        for t in range(seq.shape[1]):
+            lg, cache = model.decode_step(params, cache, seq[:, t:t + 1])
+            out.append(lg.float().cpu())
+    return torch.stack(out)
+
+
+def phase_serve_model_plain(corpus, index, store):
+    """The serving slice's card-against-plain check: `TRAIN_ARCH` at full
+    width cut to PLAIN_LAYERS layers, the same weights copied to the card
+    and to the CPU, `serve_reads` of PLAIN_SERVE["B"] reads from the
+    card's store on both. The card is then teacher-forced on the CPU's
+    context and tokens: every step's logits within PLAIN_SERVE_TOL
+    relative norm of the CPU's."""
+    import torch
+    from repro_torch.api import GenomicArchive
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import ServeConfig, ServeSession
+    B, n_ctx, n_new = PLAIN_SERVE["B"], PLAIN_SERVE["ctx"], PLAIN_SERVE["new"]
+    starts = np.asarray(index.starts, np.int64)
+    ga = GenomicArchive(store)
+    model = build_model(train_config(PLAIN_LAYERS))
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 3))
+    ids = np.random.default_rng(SEED + 3).integers(0, ga.n_reads, B)
+    cfg = ServeConfig(max_seq=n_ctx + n_new, max_new_tokens=n_new)
+    ops.reset_launches()
+    toks, ctx, secs = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        p = {k: v.to(dev, copy=True) for k, v in params.items()}
+        sess = ServeSession(model, p, cfg, store=ga)
+        generate = sess.generate
+        sess.generate = lambda c, n=None, g=generate, d=dev: (
+            ctx.setdefault(d, c), g(c, n))[1]
+        t0 = time.perf_counter()
+        toks[dev] = sess.serve_reads(ids, n_ctx)
+        secs[dev] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _check_contexts(ctx["cpu"], ids, corpus, starts, n_ctx,
+                    "serve_model_plain")
+    if not torch.equal(ctx[DEVICE].cpu(), ctx["cpu"]):
+        fail("serve_model_plain: the card's contexts are not the CPU's")
+    seq = torch.cat([ctx["cpu"], torch.from_numpy(toks["cpu"][:, :-1])], 1)
+    want = _teacher_forced(model, {k: v.to("cpu", copy=True)
+                                   for k, v in params.items()},
+                           seq, cfg.max_seq)
+    got = _teacher_forced(model, params, seq.to(DEVICE), cfg.max_seq)
+    rel = [float((g.double() - w.double()).norm() / w.double().norm())
+           for g, w in zip(got, want)]
+    greedy = want[n_ctx - 1:].argmax(-1).T.numpy()
+    out = {"phase": "serve_model_plain", "n_layers": PLAIN_LAYERS,
+           "batch": B, "ctx_bytes": n_ctx, "new_tokens": n_new,
+           "logits_rel_err_max": max(rel),
+           "logits_rel_err_generated": rel[n_ctx - 1:],
+           "tokens_equal_share": float((toks[DEVICE] == toks["cpu"]).mean()),
+           "card_s": secs[DEVICE], "plain_s": secs["cpu"],
+           "tolerance": PLAIN_SERVE_TOL, "launches": launches}
+    emit(out)
+    if not np.array_equal(greedy, toks["cpu"]):
+        fail("serve_model_plain: the CPU's tokens are not its greedy ones")
+    if not max(rel) <= PLAIN_SERVE_TOL:
+        fail(f"serve_model_plain: the card's logits are not the plain "
+             f"path's: {out}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_serve_launcher():
+    """`python -m repro_torch.launch.serve` with its defaults (reduced
+    config, on the card) in a process of its own."""
+    import torch
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=600)
+    lines = res.stdout.splitlines()
+    tuned = [ln for ln in lines if ln.startswith("tuned profile")]
+    tok_s = [ln for ln in lines
+             if f"tok/s on {torch.cuda.get_device_name(0)})" in ln]
+    emit({"phase": "serve_launcher", "rc": res.returncode,
+          "s": time.perf_counter() - t0, "tuned": tuned, "tok_s": tok_s,
+          "stderr_tail": res.stderr[-600:] if res.returncode else ""})
+    if res.returncode or not tuned or not tok_s:
+        fail(f"serve launcher: rc {res.returncode}: {lines[-6:]} "
+             f"{res.stderr[-1500:]}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1766,13 +2063,20 @@ def main() -> None:
     plain = phase_train_plain(store)
     paths["checkpoint"], resilient = phase_train_resilient()
     phase_chaos()
+    paths["tune"] = phase_tune(corpus, index)
+    paths["serve_model"], served = phase_serve_model(corpus, index, store)
+    paths["serve_model_plain"], served_plain = phase_serve_model_plain(
+        corpus, index, store)
+    phase_serve_launcher()
     # the paths each kernel runs on, and those it must not
     runs_on = {"rans_decode": ("decode", "fetch", "global", "stream",
                                "cache", "heal", "partial", "serve",
-                               "train", "checkpoint"),
+                               "train", "checkpoint", "tune",
+                               "serve_model", "serve_model_plain"),
                "lz77_match": ("decode", "fetch", "mode1", "stream",
                               "cache", "heal", "partial", "serve",
-                              "train", "checkpoint")}
+                              "train", "checkpoint", "tune",
+                              "serve_model", "serve_model_plain")}
     for k, on in runs_on.items():
         for path, counts in paths.items():
             if (path in on) != bool(counts[k]):
@@ -1791,7 +2095,14 @@ def main() -> None:
           "train_plain_grad_leaf_rel_err_max":
               plain["grad_leaf_rel_err"][plain["grad_leaf_worst"]],
           "train_resilient_loss_rel_err_max":
-              resilient["loss_rel_err_max"]})
+              resilient["loss_rel_err_max"],
+          "serve_decode_step_ms_median": served["decode_step_ms_median"],
+          "serve_tokens_per_s": served["tokens_per_s"],
+          "serve_ttft_ms": served["ttft_ms"],
+          "serve_peak_bytes_above_residency":
+              served["peak_bytes_above_residency"],
+          "serve_plain_logits_rel_err_max":
+              served_plain["logits_rel_err_max"]})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

@@ -28,13 +28,15 @@ import torch
 from repro_torch.api.address import Address, NameTable
 from repro_torch.api.executors import DeviceExecutor, StreamingExecutor
 from repro_torch.api.plan import DecodePlan, QueryPlanner
-from repro_torch.core.decoder import _not_in_slice
 
 
 class GenomicArchive:
     """Compressed-resident archive + index + name table behind one query
     surface. Wraps an existing `CompressedResidentStore` (use `from_bytes`
-    / `from_records` / `open` to build everything)."""
+    / `from_records` / `create` / `open` to build everything)."""
+
+    profile = None   # the EncodeProfile `create` tuned/used, when built
+                     # through the autotuned path
 
     def __init__(self, store, names: Optional[Sequence[bytes]] = None,
                  name_table: Optional[NameTable] = None):
@@ -52,8 +54,8 @@ class GenomicArchive:
                    mode: str = "ra", entropy: str = "rans", device="cuda",
                    cache_blocks: int = 0, cache_policy="lru",
                    anchor_interval: int = 0, parity_group: int = 0,
-                   verify: bool = False,
-                   on_error: str = "raise") -> "GenomicArchive":
+                   verify: bool = False, on_error: str = "raise",
+                   profile=None) -> "GenomicArchive":
         """FASTQ bytes → encoded archive + ReadIndex + device name table on
         `device`. cache_blocks > 0 enables the device-resident
         decoded-block cache ("lru" | "freq" | "tinylfu" | an
@@ -63,14 +65,17 @@ class GenomicArchive:
         `parity_group=k` stores one XOR parity row per k compressed blocks
         (the `ACEJAX05` tail): any single corrupt block of a group heals
         on the device under `on_error="repair"`. `verify`/`on_error` are
-        the store's defaults for every query."""
+        the store's defaults for every query. `profile` (a
+        `repro_torch.tune.EncodeProfile`, e.g. from `autotune`) supplies
+        every encode knob at once — pass it INSTEAD of
+        block_size/mode/entropy/anchor_interval."""
         from repro_torch.core.encoder import encode
         from repro_torch.core.index import ReadIndex, parse_fastq_records
         from repro_torch.core.residency import CompressedResidentStore
         starts, names = parse_fastq_records(data)
         archive = encode(data, block_size=block_size, mode=mode,
                          entropy=entropy, anchor_interval=anchor_interval,
-                         parity_group=parity_group)
+                         parity_group=parity_group, profile=profile)
         index = ReadIndex(starts=starts, block_size=archive.block_size)
         store = CompressedResidentStore(archive, index, device=device,
                                         cache_blocks=cache_blocks,
@@ -84,8 +89,8 @@ class GenomicArchive:
                      entropy: str = "rans", device="cuda",
                      cache_blocks: int = 0, cache_policy="lru",
                      anchor_interval: int = 0, parity_group: int = 0,
-                     verify: bool = False,
-                     on_error: str = "raise") -> "GenomicArchive":
+                     verify: bool = False, on_error: str = "raise",
+                     profile=None) -> "GenomicArchive":
         """Fixed-size records (tokenized corpora): arithmetic index, no
         names. `data` is cut to a whole number of records. The other
         arguments are those of `from_bytes`."""
@@ -98,7 +103,7 @@ class GenomicArchive:
         data = data[:n_rec * record_bytes]
         archive = encode(data, block_size=block_size, mode=mode,
                          entropy=entropy, anchor_interval=anchor_interval,
-                         parity_group=parity_group)
+                         parity_group=parity_group, profile=profile)
         index = ReadIndex.fixed_records(n_rec, record_bytes,
                                         archive.block_size)
         store = CompressedResidentStore(archive, index, device=device,
@@ -108,9 +113,39 @@ class GenomicArchive:
         return cls(store)
 
     @classmethod
-    def create(cls, *args, **kwargs) -> "GenomicArchive":
-        raise _not_in_slice("GenomicArchive.create (the encode autotuner)",
-                            "encode-autotuner")
+    def create(cls, data: bytes, target: str = "seek",
+               latency_budget_us: Optional[float] = None,
+               record_bytes: Optional[int] = None,
+               sample_bytes: int = 1 << 20, device="cuda",
+               cache_blocks: int = 0, cache_policy="lru",
+               profile=None, **tune_kwargs) -> "GenomicArchive":
+        """Autotuned builder: sweep the encode knob grid on a bounded
+        sample of `data`, pick the Pareto point for the declared objective
+        (`target` = "seek" | "ratio" | "throughput", or a
+        `latency_budget_us` meaning best ratio whose seek fits the
+        budget), then encode the full corpus with the winning
+        `EncodeProfile`. The sweep measures on `device`, where the archive
+        then lives. Pass `profile=` to skip the sweep and reuse a
+        previously tuned profile. `record_bytes` routes to `from_records`
+        (fixed-size records) instead of FASTQ parsing. The chosen profile
+        is exposed as `ga.profile`."""
+        if profile is None:
+            from repro_torch.tune import autotune
+            result = autotune(data, target=target,
+                              latency_budget_us=latency_budget_us,
+                              sample_bytes=sample_bytes, device=device,
+                              **tune_kwargs)
+            profile = result.profile
+        if record_bytes is not None:
+            ga = cls.from_records(data, record_bytes, device=device,
+                                  cache_blocks=cache_blocks,
+                                  cache_policy=cache_policy, profile=profile)
+        else:
+            ga = cls.from_bytes(data, device=device,
+                                cache_blocks=cache_blocks,
+                                cache_policy=cache_policy, profile=profile)
+        ga.profile = profile
+        return ga
 
     # ------------------------------------------------------- persistence
     _DISK_MAGIC = b"ACEGADS1"     # facade container: archive + index sidecar

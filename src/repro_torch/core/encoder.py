@@ -85,7 +85,8 @@ def encode(data: bytes | np.ndarray,
            hash_bits: int = 17,
            anchor_interval: int = 0,
            origin: int = 0,
-           parity_group: int = 0) -> Archive:
+           parity_group: int = 0,
+           profile=None) -> Archive:
     """Compress `data` into an ACEAPEX archive.
 
     `anchor_interval` (global mode only) emits a wavefront restart point
@@ -108,7 +109,26 @@ def encode(data: bytes | np.ndarray,
     (`repro_torch.resilience`). k=1 is payload replication; parity
     overhead is roughly 1/k of the payload bytes. 0 (default) writes a
     parity-free archive, byte-identical to the v3 format.
+
+    `profile` (a `repro_torch.tune.EncodeProfile`) supplies block_size /
+    mode / entropy / anchor_interval in one declared object — the
+    autotuner's output; explicit keyword knobs must not also be passed
+    alongside it.
     """
+    if profile is not None:
+        defaults = dict(block_size=DEFAULT_BLOCK_SIZE, mode="ra",
+                        entropy="rans", anchor_interval=0)
+        given = dict(block_size=block_size, mode=mode, entropy=entropy,
+                     anchor_interval=anchor_interval)
+        clash = [k for k, v in given.items() if v != defaults[k]]
+        if clash:
+            raise ValueError(
+                f"encode(profile=...) also got explicit {clash} — the "
+                f"profile owns those knobs; drop one or the other")
+        block_size = profile.block_size
+        mode = profile.mode
+        entropy = profile.entropy
+        anchor_interval = profile.anchor_interval
     data = np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray)) \
         else np.ascontiguousarray(data, np.uint8)
     n = data.shape[0]

@@ -17,8 +17,8 @@ before torch loads.
 
 `--device` defaults to the CUDA card and the launcher refuses to start
 without one; `--device cpu` runs the plain PyTorch versions (reduced
-configs). `--manual-dp`, `--grad-compress` and `--tune-target` come with
-later slices of the port and exit with a message naming them.
+configs). `--manual-dp` and `--grad-compress` come with a later slice of
+the port and exit with a message naming it.
 """
 import argparse
 import os
@@ -50,8 +50,9 @@ from repro_torch.training.train_step import (init_train_state,  # noqa: E402
 
 def build_archive(args) -> GenomicArchive:
     """`--archive PATH` existing → open it (compressed bytes on disk →
-    device; zero encode work). Otherwise encode the corpus once with the
-    declared block size and, when `--archive` names a path, save the
+    device; zero encode work). Otherwise encode the corpus once —
+    through the autotuner when `--tune-target` is set, else with the
+    declared block size — and, when `--archive` names a path, save the
     result there so the NEXT invocation opens instead of encoding."""
     rec = args.seq + 1
     if args.archive and os.path.exists(args.archive):
@@ -67,10 +68,16 @@ def build_archive(args) -> GenomicArchive:
               f"blocks, no re-encode)")
         return ga
     corpus = make_fastq("platinum", n_reads=args.reads, seed=0)
-    ga = GenomicArchive.from_records(corpus, record_bytes=rec,
-                                     block_size=args.block,
-                                     device=args.device,
-                                     cache_blocks=args.cache_blocks)
+    if args.tune_target:
+        ga = GenomicArchive.create(corpus, target=args.tune_target,
+                                   record_bytes=rec, device=args.device,
+                                   cache_blocks=args.cache_blocks)
+        print(f"autotuned profile: {ga.profile.describe()}")
+    else:
+        ga = GenomicArchive.from_records(corpus, record_bytes=rec,
+                                         block_size=args.block,
+                                         device=args.device,
+                                         cache_blocks=args.cache_blocks)
     if args.archive:
         n = ga.save(args.archive)
         print(f"saved archive -> {args.archive} ({n} B)")
@@ -105,8 +112,8 @@ def main(argv=None):
                          "once, save here for next time.")
     ap.add_argument("--tune-target", default=None,
                     choices=["seek", "ratio", "throughput"],
-                    help="autotune the encode profile (encode-autotuner "
-                         "slice)")
+                    help="autotune the encode profile "
+                         "(repro_torch.tune) instead of hardcoding --block")
     ap.add_argument("--block", type=int, default=16 * 1024)
     ap.add_argument("--reads", type=int, default=4000,
                     help="synthetic corpus size when encoding")
@@ -125,9 +132,6 @@ def main(argv=None):
         raise SystemExit(str(_not_in_slice(
             "--manual-dp/--grad-compress (data-parallel collectives)",
             "multi-GPU")))
-    if args.tune_target:
-        raise SystemExit(str(_not_in_slice("--tune-target",
-                                           "encode-autotuner")))
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)

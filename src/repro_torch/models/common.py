@@ -1,6 +1,7 @@
 """Shared model substrate: params-as-flat-dict, norms, RoPE, GQA
-attention (full and blockwise), MLPs, the loss — the part of the JAX
-package's `models/common.py` that the dense training path needs.
+attention (causal / local / decode-with-cache, full and blockwise), MLPs,
+the loss and the KV cache — the part of the JAX package's
+`models/common.py` that the dense training and serving paths need.
 
 Parameters are a FLAT dict {path: tensor}; each model declares
 `param_defs(cfg) -> {path: (shape, logical_axes)}`, the one source of
@@ -19,6 +20,7 @@ Everything here is plain PyTorch: the reference computes these in plain
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 from typing import Dict, Optional, Tuple
@@ -99,11 +101,19 @@ def rope_freqs(head_dim: int, theta: float):
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_table(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """`rope_freqs` on `device`, built once: a copy from pageable host
+    memory waits for the device, which a decode step would otherwise do
+    twice a layer."""
+    return torch.from_numpy(np.asarray(rope_freqs(head_dim, theta),
+                                       np.float32)).to(device)
+
+
 def apply_rope(x, positions, theta: float):
     """x (..., S, H, D), positions (..., S) int32."""
-    d = x.shape[-1]
-    inv = torch.from_numpy(np.asarray(rope_freqs(d, theta),
-                                      np.float32)).to(x.device)
+    inv = _rope_table(x.shape[-1], theta, x.device)
     ang = _f32(positions[..., None]) * inv                      # (..., S, D/2)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -116,8 +126,9 @@ def apply_rope(x, positions, theta: float):
 _NEG = torch.finfo(torch.float32).min
 
 
-def _mask_bias(sq, sk, causal: bool, window: int, device):
-    qi = torch.arange(sq, dtype=torch.int32, device=device)[:, None]
+def _mask_bias(sq, sk, q_offset, causal: bool, window: int, device):
+    qi = torch.arange(sq, dtype=torch.int32, device=device)[:, None] \
+        + q_offset
     ki = torch.arange(sk, dtype=torch.int32, device=device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -141,12 +152,15 @@ def set_attn_impl(impl: str, kv_chunk: int = 1024) -> None:
     ATTN_KV_CHUNK = kv_chunk
 
 
-def gqa_attention(q, k, v, *, causal=True, window: int = 0):
-    """q (B,Sq,H,D), k/v (B,Sk,KV,D) → (B,Sq,H,D). fp32 softmax. Head
-    grouping: H = KV · G. (The reference's decode-time `q_offset` and
-    `kv_len` come with the KV cache, in the model-serving slice.)
+def gqa_attention(q, k, v, *, causal=True, window: int = 0, q_offset=0,
+                  kv_len=None):
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) → (B,Sq,H,D). fp32 softmax.
+
+    q_offset shifts the query positions of the causal and window mask.
+    kv_len: optional (B,) valid cache length (decode); positions ≥ kv_len
+    are masked. Head grouping: H = KV · G.
     """
-    if (ATTN_IMPL == "blockwise" and q.shape[1] > 1
+    if (ATTN_IMPL == "blockwise" and kv_len is None and q.shape[1] > 1
             and k.shape[1] % min(ATTN_KV_CHUNK, k.shape[1]) == 0):
         return gqa_attention_blockwise(q, k, v, causal=causal,
                                        window=window,
@@ -157,8 +171,12 @@ def gqa_attention(q, k, v, *, causal=True, window: int = 0):
     qg = q.reshape(B, Sq, KV, G, D)
     scale = 1.0 / math.sqrt(D)
     scores = torch.einsum("bqkgd,bskd->bkgqs", _f32(qg), _f32(k)) * scale
-    bias = _mask_bias(Sq, k.shape[1], causal, window, q.device)
+    bias = _mask_bias(Sq, k.shape[1], q_offset, causal, window, q.device)
     scores = scores + bias[None, None, None]
+    if kv_len is not None:
+        ki = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+        live = ki[None] < kv_len[:, None]                       # (B, Sk)
+        scores = scores.masked_fill(~live[:, None, None, None, :], _NEG)
     probs = torch.softmax(scores, dim=-1)                      # fp32
     out = torch.einsum("bkgqs,bskd->bqkgd", _f32(probs.to(q.dtype)), _f32(v))
     return out.reshape(B, Sq, H, D).to(q.dtype)
@@ -228,3 +246,29 @@ def cross_entropy_loss(logits, labels, vocab: int):
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+# -------------------------------------------------------------- kv caching
+def kv_cache_specs(B: int, S: int, n_kv: int, head_dim: int, n_layers: int,
+                   dtype=torch.bfloat16):
+    """The cache's shapes and dtypes as meta tensors (no allocation)."""
+    kv = (n_layers, B, S, n_kv, head_dim)
+    return {"k": torch.empty(kv, dtype=dtype, device="meta"),
+            "v": torch.empty(kv, dtype=dtype, device="meta"),
+            "pos": torch.empty((B,), dtype=torch.int32, device="meta")}
+
+
+def init_kv_cache(B: int, S: int, n_kv: int, head_dim: int, n_layers: int,
+                  dtype=torch.bfloat16, device="cuda"):
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
+            for k, t in kv_cache_specs(B, S, n_kv, head_dim, n_layers,
+                                       dtype).items()}
+
+
+# the reference's logical axes of the decode cache: the SEQUENCE axis
+# shards over "model" (kv-head counts are too small and ragged to shard)
+KV_CACHE_AXES = {
+    "k": ("layers", "batch", "kv_seq", None, None),
+    "v": ("layers", "batch", "kv_seq", None, None),
+    "pos": ("batch",),
+}

@@ -13,6 +13,12 @@ recomputes each layer in the backward
 matrix products with no batch dims (`aten.mm`/`aten.addmm`) and
 recomputes the rest, the counterpart of the reference's
 `dots_with_no_batch_dims_saveable`.
+
+Serving: `decode_step` runs one token a sequence against a KV cache
+(`init_cache`, `(L, B, S, KV, D)` keys after RoPE and values, and the
+(B,) position). It writes the cache in place, at a slot clamped into
+[0, S-1] on the device as the reference's `dynamic_update_slice` clamps
+it, so a step never waits for the device.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.decoder import _not_in_slice
+from repro_torch.core.decoder import _not_in_slice, resolve_device
 from repro_torch.models import common as cm
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -93,7 +99,14 @@ class DenseLM(nn.Module):
         att = att.reshape(h.shape[0], h.shape[1], c.q_dim)
         h = h + cm._mm(att, lp["wo"])
         hn = cm.rms_norm(h, lp["mlp_norm"], c.norm_eps)
-        return h + self._mlp(lp, hn)
+        return h + self._mlp(lp, hn), (k, v)
+
+    def _layers(self, params: Dict):
+        """Per-layer weight dicts: `torch.unbind` views of the stacks."""
+        names = sorted(k.split("/", 1)[1] for k in params
+                       if k.startswith("layers/"))
+        stacks = [torch.unbind(params[f"layers/{n}"], 0) for n in names]
+        return [dict(zip(names, layer)) for layer in zip(*stacks)]
 
     # -------------------------------------------------------------- forward
     def forward(self, params: Dict, tokens, mrope=None, img_embeds=None,
@@ -101,8 +114,6 @@ class DenseLM(nn.Module):
         if mrope is not None or img_embeds is not None:
             raise _not_in_slice("DenseLM mrope/img_embeds (the VLM)",
                                 "remaining-models")
-        if collect_kv:
-            raise _not_in_slice("DenseLM KV collection", "model-serving")
         if remat not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat!r}")
         c = self.cfg
@@ -111,15 +122,18 @@ class DenseLM(nn.Module):
             tokens, params["embed"].to(torch.bfloat16))
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :]
-        names = sorted(k.split("/", 1)[1] for k in params
-                       if k.startswith("layers/"))
-        stacks = [torch.unbind(params[f"layers/{n}"], 0) for n in names]
-        for layer in zip(*stacks):
-            lp = dict(zip(names, layer))
-            h = _run_layer(functools.partial(self._block, lp,
-                                             positions=positions), h, remat)
+        ks, vs = [], []
+        for lp in self._layers(params):
+            h, (k, v) = _run_layer(functools.partial(
+                self._block, lp, positions=positions), h, remat)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
         h = cm.rms_norm(h, params["final_norm"], c.norm_eps)
-        return cm._mm(h, params["unembed"])
+        logits = cm._mm(h, params["unembed"])
+        if collect_kv:
+            return logits, (torch.stack(ks), torch.stack(vs))
+        return logits
 
     def loss(self, params: Dict, batch: Dict, remat: str = "full"):
         logits = self.forward(params, batch["tokens"],
@@ -129,12 +143,54 @@ class DenseLM(nn.Module):
         return cm.cross_entropy_loss(logits, batch["labels"], self.cfg.vocab)
 
     # -------------------------------------------------------------- serving
-    def init_cache(self, *args, **kwargs):
-        raise _not_in_slice("DenseLM.init_cache (the KV cache)",
-                            "model-serving")
+    def cache_specs(self, B: int, S: int, dtype=torch.bfloat16):
+        c = self.cfg
+        return cm.kv_cache_specs(B, S, c.n_kv_heads, c.head_dim, c.n_layers,
+                                 dtype)
 
-    def decode_step(self, *args, **kwargs):
-        raise _not_in_slice("DenseLM.decode_step", "model-serving")
+    def cache_axes(self):
+        return dict(cm.KV_CACHE_AXES)
+
+    def init_cache(self, B: int, S: int, dtype=torch.bfloat16,
+                   device="cuda"):
+        c = self.cfg
+        return cm.init_kv_cache(B, S, c.n_kv_heads, c.head_dim, c.n_layers,
+                                dtype, resolve_device(device))
+
+    def decode_step(self, params: Dict, cache: Dict, tokens, mrope=None):
+        """One token per sequence: tokens (B, 1) → logits (B, vocab).
+        Writes the new keys and values into `cache` in place and returns
+        it with `pos` advanced by one."""
+        if mrope is not None:
+            raise _not_in_slice("DenseLM mrope (the VLM)", "remaining-models")
+        c = self.cfg
+        B = tokens.shape[0]
+        h = torch.nn.functional.embedding(
+            tokens, params["embed"].to(torch.bfloat16))          # (B,1,E)
+        pos = cache["pos"]                                       # (B,)
+        positions = pos[:, None]
+        # the write slot of every row is pos[0], clamped into the cache
+        # as dynamic_update_slice clamps its start: a device index, so
+        # the host never waits for pos
+        slot = pos[:1].clamp(0, cache["k"].shape[2] - 1).long()
+        kv_len = pos + 1
+        for i, lp in enumerate(self._layers(params)):
+            k_cache, v_cache = cache["k"][i], cache["v"][i]
+            hn = cm.rms_norm(h, lp["attn_norm"], c.norm_eps)
+            q, k, v = self._qkv(lp, hn, positions)
+            # keys cached post-rope → ring/linear layout agnostic
+            k_cache.index_copy_(1, slot, k)
+            v_cache.index_copy_(1, slot, v)
+            att = cm.gqa_attention(q, k_cache, v_cache, causal=False,
+                                   kv_len=kv_len)
+            att = att.reshape(B, 1, c.q_dim)
+            h = h + cm._mm(att, lp["wo"])
+            hn = cm.rms_norm(h, lp["mlp_norm"], c.norm_eps)
+            h = h + self._mlp(lp, hn)
+        h = cm.rms_norm(h, params["final_norm"], c.norm_eps)
+        logits = cm._mm(h, params["unembed"])[:, 0]
+        cache["pos"] = kv_len
+        return logits, cache
 
 
 def _save_dots(ctx, op, *args, **kwargs):

@@ -1,13 +1,12 @@
-"""The read-serving plane: the batch endpoint + the multi-tenant frontend.
+"""The serving plane: batched endpoints + the multi-tenant frontend.
 
-`ReadBatcher` (`serve_step`) is the single-tenant batch endpoint over the
-query plane; `ServingFrontend` (`frontend`) is the multi-tenant serving
-plane on top — continuous batching across N archives, deadline/priority
-scheduling with typed `Overloaded` backpressure, per-tenant cache
-partitions + TinyLFU admission (`admission`), and the closed-loop traffic
-harness (`traffic`) that turns its latency claims into measured
-p50/p95/p99 numbers. The model-serving session of the reference comes
-with the model slices of the port.
+`ReadBatcher`/`ServeSession` (`serve_step`) are the single-tenant batch
+endpoints over the query plane; `ServingFrontend` (`frontend`) is the
+multi-tenant serving plane on top — continuous batching across N
+archives, deadline/priority scheduling with typed `Overloaded`
+backpressure, per-tenant cache partitions + TinyLFU admission
+(`admission`), and the closed-loop traffic harness (`traffic`) that
+turns its latency claims into measured p50/p95/p99 numbers.
 
 Exports resolve lazily (PEP 562) so `python -m repro_torch.serving.traffic`
 does not re-import its own module through the package.
@@ -21,6 +20,8 @@ _EXPORTS = {
     "ServingFrontend": "repro_torch.serving.frontend",
     "Ticket": "repro_torch.serving.frontend",
     "ReadBatcher": "repro_torch.serving.serve_step",
+    "ServeConfig": "repro_torch.serving.serve_step",
+    "ServeSession": "repro_torch.serving.serve_step",
     "FlashCrowdSampler": "repro_torch.serving.traffic",
     "MixSampler": "repro_torch.serving.traffic",
     "ScanSampler": "repro_torch.serving.traffic",

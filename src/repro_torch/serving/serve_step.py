@@ -1,14 +1,22 @@
-"""The batch read endpoint in front of a compressed-resident store.
+"""Batched serving: the batch read endpoint, and prefill → decode with
+a KV cache over a compressed-resident store.
+
+`ServeSession` pairs a model with a compressed-resident store: request
+contexts are fetched by read id and decoded on the device (paper
+§4/§6.1 — the consumer is device-resident, so nothing crosses the host
+link), then the decode loop emits tokens step by step, on the device
+until one copy to the host at the end.
 
 `ReadBatcher`: requests queue as they arrive and one `flush()` coalesces
 them into a single `fetch_reads` selection decode — N queued random
 reads cost one kernel pipeline on the device, not N host round-trips.
 Duplicate read ids anywhere in the queue are deduplicated: N tickets for
-the same read cost one batch row, not N. It routes through the query
-plane (`fetch_reads` lowers through QueryPlanner → DeviceExecutor).
+the same read cost one batch row, not N.
 
-The reference's model-serving session pairs this endpoint with a model;
-it comes with the model slices of the port.
+Both endpoints route through the query plane (`fetch_reads` lowers
+through QueryPlanner → DeviceExecutor), and `ServeSession` accepts any
+address the `GenomicArchive` facade resolves (read ids, named regions)
+for its request contexts.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.api.archive import GenomicArchive
 
@@ -147,3 +156,89 @@ class ReadBatcher:
             self.last_flush_us = (time.perf_counter() - t0) * 1e6
             self.total_flush_us += self.last_flush_us
         return out
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_seq: int = 512
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 = greedy
+
+
+class ServeSession:
+    """A model, its parameters and (optionally) a store to serve from.
+    The model runs on the device its parameters live on; contexts
+    fetched from a store on another device are moved there."""
+
+    def __init__(self, model, params, cfg: ServeConfig, store=None):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        if isinstance(store, GenomicArchive):
+            self.archive: Optional[GenomicArchive] = store
+            self.store = store.store
+        elif store is not None:
+            self.archive = GenomicArchive(store)
+            self.store = store
+        else:
+            self.archive = self.store = None
+        self.device = next(iter(params.values())).device
+        self._decode = model.decode_step
+
+    @torch.no_grad()
+    def prime(self, contexts: torch.Tensor) -> Dict:
+        """Sequential prefill via decode steps (teacher-forced context feed).
+        contexts (B, S_ctx) int32."""
+        B, S_ctx = contexts.shape
+        cache = self.model.init_cache(B, self.cfg.max_seq,
+                                      device=self.device)
+        logits = None
+        for t in range(S_ctx):
+            logits, cache = self._decode(self.params, cache,
+                                         contexts[:, t:t + 1])
+        return {"cache": cache, "logits": logits}
+
+    @torch.no_grad()
+    def generate(self, contexts: torch.Tensor,
+                 max_new_tokens: Optional[int] = None) -> np.ndarray:
+        """Greedy decode of `max_new_tokens` (default the config's) after
+        the contexts → (B, n) int32 host array. The tokens stay on the
+        device until the one copy at the end."""
+        n_new = max_new_tokens or self.cfg.max_new_tokens
+        st = self.prime(contexts)
+        cache, logits = st["cache"], st["logits"]
+        cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        toks = [cur]
+        for _ in range(n_new - 1):
+            logits, cache = self._decode(self.params, cache, cur)
+            cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            toks.append(cur)
+        return torch.cat(toks, dim=1).cpu().numpy()
+
+    def serve_reads(self, read_ids, ctx_bytes: int,
+                    max_new_tokens: Optional[int] = None) -> np.ndarray:
+        """Batched requests addressed through the query plane:
+        compressed-resident fetch → on-device byte contexts → generate.
+
+        With a ReadIndex attached, requests may be read ids OR any address
+        the facade resolves (named regions, `"name:start-end"` strings);
+        the batch lowers to one `GenomicArchive.query` (truncated /
+        zero-padded to `ctx_bytes`). Without an index, ids address fixed
+        `ctx_bytes` records.
+        """
+        if self.store is None:
+            raise ValueError("no compressed-resident store attached")
+        if self.store.index is not None:
+            addrs = (read_ids if isinstance(read_ids, np.ndarray)
+                     else list(read_ids))
+            rows, _ = self.archive.query(addrs)
+            if rows.shape[1] >= ctx_bytes:
+                rows = rows[:, :ctx_bytes]
+            else:
+                rows = torch.nn.functional.pad(
+                    rows, (0, ctx_bytes - rows.shape[1]))
+        else:
+            rows = self.store.fetch_records(np.asarray(read_ids, np.int64),
+                                            ctx_bytes)
+        contexts = rows.to(self.device, torch.int32)
+        return self.generate(contexts, max_new_tokens)

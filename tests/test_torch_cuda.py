@@ -488,3 +488,105 @@ def test_checkpoint_restore_on_the_card(cuda_device, tmp_path):
         assert torch.equal(got, v), k
     assert out["opt"]["step"].dtype == torch.int32
     assert int(out["opt"]["step"]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_steps_on_the_card_match_the_cpu(cuda_device, dtype):
+    """Eight teacher-forced reduced-config decode steps from the same
+    weights: each step's logits within 1e-4 (fp32) or 2e-2 (bf16)
+    relative norm of the CPU's, the caches alike; the write slot and
+    the positions never leave the card."""
+    model = _reduced_lm()
+    params = model.init(torch.Generator().manual_seed(6),
+                        getattr(torch, dtype))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (3, 8)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev) for k, v in params.items()}
+        cache = model.init_cache(3, 8, dtype=getattr(torch, dtype),
+                                 device=dev)
+        logits = []
+        with torch.no_grad():
+            for t in range(toks.shape[1]):
+                lg, cache = model.decode_step(p, cache,
+                                              toks[:, t:t + 1].to(dev))
+                logits.append(lg.float().cpu())
+        out[str(dev)] = (logits, {k: v.cpu() for k, v in cache.items()})
+    (lc, cc), (lg, cg) = out["cpu"], out[str(cuda_device)]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    errs = [_rel(a, b) for a, b in zip(lc, lg)]
+    print(f"decode card vs cpu {dtype}: worst step {max(errs):.3e}")
+    assert max(errs) <= tol, errs
+    for k in ("k", "v"):
+        assert _rel(cc[k].float(), cg[k].float()) <= tol, k
+    assert torch.equal(cc["pos"], cg["pos"]) and int(cg["pos"][0]) == 8
+
+
+def test_serve_session_on_the_card(cuda_device, monkeypatch):
+    """`ServeSession.serve_reads` from a store on the card: contexts
+    fetched through both kernels, greedy tokens in range, equal to the
+    CPU's in fp32 (fp32 weights and an fp32 cache)."""
+    import functools
+    from repro_torch.api.archive import GenomicArchive
+    from repro_torch.serving import ServeConfig, ServeSession
+    data = make_fastq("platinum", n_reads=400, seed=41)
+    model = _reduced_lm()
+    monkeypatch.setattr(model, "init_cache", functools.partial(
+        type(model).init_cache, model, dtype=torch.float32))
+    params = model.init(torch.Generator().manual_seed(7), torch.float32)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        ga = GenomicArchive.from_bytes(data, block_size=4096, device=dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        sess = ServeSession(model, p, ServeConfig(max_seq=24), store=ga)
+        before = dict(ops.LAUNCHES)
+        got[str(dev)] = sess.serve_reads([5, 77, 301], 16, 6)
+        if dev != "cpu":
+            assert all(ops.LAUNCHES[k] > before[k] for k in before)
+    want = got["cpu"]
+    assert want.shape == (3, 6) and (want >= 0).all() \
+        and (want < model.cfg.vocab).all()
+    np.testing.assert_array_equal(got[str(cuda_device)], want)
+
+
+def test_autotune_on_the_card_decodes_bit_for_bit(cuda_device):
+    """A reduced sweep of the default grid on the card: every point's
+    ratio is a CPU encode's, readings are positive, and the chosen
+    profile's archive decodes the corpus bit for bit on the card."""
+    from repro_torch.api.archive import GenomicArchive
+    from repro_torch.tune import EncodeProfile, autotune
+    data = make_fastq("platinum", n_reads=1200, seed=43)
+    res = autotune(data, target="seek", sample_bytes=256 * 1024, iters=1,
+                   device=cuda_device)
+    assert len(res.points) == 8 and not res.skipped
+    sample = data[:256 * 1024]
+    for p in res.points:
+        assert p.ratio == encode(sample, profile=p.profile).ratio
+        assert p.seek_us > 0 and p.decode_GBps > 0
+    assert isinstance(res.profile, EncodeProfile)
+    ga = GenomicArchive.create(data, profile=res.profile,
+                               device=cuda_device)
+    assert ga.profile == res.profile
+    assert ga.store.decoder.decode_all().tobytes() == data
+
+
+@pytest.mark.parametrize("entropy", ["rans", "raw"])
+def test_tuner_64KiB_ra_blocks_on_the_card(cuda_device, entropy):
+    """The default grid's 64 KiB "ra" points (4 offset planes, the match
+    kernel's pointers in global scratch) on a 1 MiB sample: the card's
+    rows equal the plain path's and the source, whole and one block at
+    a time (the tuner's seek)."""
+    data = make_fastq("platinum", n_reads=5000, seed=44)[:1 << 20]
+    a = encode(data, block_size=64 * 1024, entropy=entropy)
+    assert a.offset_bytes == 4 and a.n_blocks == 16
+    card = dec.Decoder(a, device=cuda_device)
+    plain = dec.Decoder(a, device="cpu")
+    before = dict(ops.LAUNCHES)
+    rows = card.decode_blocks(np.arange(a.n_blocks))
+    assert ops.LAUNCHES["lz77_match"] > before["lz77_match"]
+    assert torch.equal(rows.cpu(), plain.decode_blocks(
+        np.arange(a.n_blocks)))
+    assert rows.reshape(-1)[:len(data)].cpu().numpy().tobytes() == data
+    one = card.decode_blocks(np.array([8]))
+    assert torch.equal(one.cpu(), rows[8:9].cpu())

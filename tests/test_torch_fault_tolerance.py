@@ -241,5 +241,6 @@ def test_launcher_refuses_the_cpu_without_a_card_and_later_slices(
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(SystemExit, match="multi-GPU"):
         train.main(["--manual-dp", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="encode-autotuner"):
-        train.main(["--tune-target", "seek", "--device", "cpu"])
+    # --tune-target is ported: it too refuses the card's absence
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train.main(["--tune-target", "seek", "--reduced", "--steps", "1"])

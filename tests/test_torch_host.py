@@ -153,7 +153,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     scanned = {p.parent.name for p in sources}
     assert {"api", "checkpoint", "configs", "core", "data", "distributed",
             "kernels", "launch", "models", "resilience", "serving",
-            "training"} <= scanned, scanned
+            "training", "tune"} <= scanned, scanned
     for path in sources:
         for m in _imported_modules(path):
             assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
@@ -186,6 +186,18 @@ def test_import_and_fetch_leave_jax_unloaded():
         "                                 device='cpu')\n"
         "b = next(iter(ga.dataset(batch_size=2, prefetch=1)))\n"
         "assert b['tokens'].shape == (2, 63)\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.tune import EncodeProfile, autotune\n"
+        "from repro_torch.serving import ServeConfig, ServeSession\n"
+        "r = autotune(data, grid=[EncodeProfile(block_size=2048)\n"
+        "             .encode_kwargs()], iters=1, device='cpu')\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.registry import build_model\n"
+        "import torch\n"
+        "m = build_model(get_config('qwen2-1.5b').reduced())\n"
+        "p = m.init(torch.Generator().manual_seed(0))\n"
+        "sess = ServeSession(m, p, ServeConfig(max_seq=16), store=ga)\n"
+        "assert sess.serve_reads([1, 2], 8, 2).shape == (2, 2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")
@@ -207,11 +219,19 @@ def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch,
     GenomicArchive.from_bytes(data, block_size=2048, device="cpu").save(path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.api.address import NameTable
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.tune import EncodeProfile, autotune
     for build in (lambda: Decoder(a),
                   lambda: NameTable.build([b"r0", b"r1"]),
                   lambda: CompressedResidentStore(a),
                   lambda: CompressedResidentStore(a, cache_blocks=4),
                   lambda: GenomicArchive.from_bytes(data, block_size=2048),
-                  lambda: GenomicArchive.open(path)):
+                  lambda: GenomicArchive.open(path),
+                  lambda: GenomicArchive.create(data, profile=EncodeProfile(
+                      block_size=2048)),
+                  lambda: autotune(data, iters=1),
+                  lambda: build_model(get_config("qwen2-1.5b").reduced())
+                  .init_cache(1, 4)):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             build()

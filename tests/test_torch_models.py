@@ -286,9 +286,14 @@ def test_init_is_stable_and_follows_the_reference_distributions(models):
 
 
 def test_serving_parts_name_their_slice(models):
+    """The KV cache and decode step are ported (held against the
+    reference in test_torch_serve_model.py); the VLM's inputs still name
+    their slice."""
     _, pm = models
-    with pytest.raises(NotImplementedError, match="model-serving"):
-        pm.decode_step(None, None, None)
+    params = pm.init(torch.Generator().manual_seed(1))
+    logits, cache = pm.decode_step(params, pm.init_cache(1, 4, device="cpu"),
+                                   torch.zeros((1, 1), dtype=torch.int32))
+    assert logits.shape == (1, pm.cfg.vocab) and int(cache["pos"][0]) == 1
     with pytest.raises(NotImplementedError, match="remaining-models"):
         pm.forward({}, torch.zeros((1, 2), dtype=torch.int32),
                    mrope=torch.zeros(1))

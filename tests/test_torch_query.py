@@ -127,8 +127,10 @@ def test_empty_query_and_unported_entry_points(gas):
     _, pga, _ = gas
     rows, lens = pga.query([])
     assert rows.shape[0] == 0 and lens.shape[0] == 0
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        GenomicArchive.create(b"")
+    # the autotuner is ported: the reference's refusal of an empty corpus
+    for cls in (GenomicArchive, RGA):
+        with pytest.raises(ValueError, match="empty"):
+            cls.create(b"")
     # the training data plane is ported: the same refusal of variable
     # records without seq_len, the same batches with it
     rga = gas[0]

@@ -20,6 +20,11 @@ the model paths: qwen2-1.5b at full width and depth trained from the
 encode autotuner swept on the card, and the same model served by
 `ServeSession` (KV-cache decode) from the 8 GiB store, each held against
 the CPU at 2 layers; and the serving launcher in a process of its own.
+Multi-device residency: the 8 GiB store partitioned over a 4-shard mesh
+(on the one card, or one card a shard where there are four), read
+through `ShardedExecutor`, streamed per shard, cached per shard and
+healed after a lost shard; and data-parallel training of the same model
+in an NCCL world of one, with and without the int8 gradient all-reduce.
 It checks every decoded and served byte against the source. Each phase
 prints one JSON line; the last line is `{"ok": true, "device": {...}}`.
 Any mismatch or failure exits non-zero; without a CUDA card it exits
@@ -80,6 +85,13 @@ SERVE_CTX = 128                   # B uniform read ids, contexts of this
 SERVE_NEW = 32                    # many bytes, this many new tokens
 PLAIN_SERVE = {"B": 2, "ctx": 32, "new": 8}   # serve_model_plain, at
 PLAIN_SERVE_TOL = 1e-2            # PLAIN_LAYERS: logits' relative norm
+SHARDS = 4                        # shard: the 8 GiB store over 4 shards
+SHARD_B1 = 100                    # B=1 fetches through ShardedExecutor,
+SHARD_BATCHES = 64                # then B=256 batches of uniform ids;
+SHARD_CACHE = 2048                # cache slots a shard (8192 in all)
+SHARD_HEAL = 4096                 # blocks read after a shard is lost
+DP_STEPS = 3                      # train_dp: 2-layer steps, DP vs plain,
+DP_FULL_STEPS = 4                 # then full-depth steps each way
 SEED = 12
 DEVICE = "cuda"
 # peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
@@ -1621,6 +1633,390 @@ def phase_train_plain(store):
     return out
 
 
+def shard_mesh():
+    """The shard phase's mesh of SHARDS shards: one card a shard where
+    the machine has that many cards, else every shard on the card."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    if DEVICE == "cuda" and torch.cuda.device_count() >= SHARDS:
+        return (make_mesh((SHARDS,), ("data",),
+                          [f"cuda:{i}" for i in range(SHARDS)]),
+                "one card a shard")
+    return (make_mesh((SHARDS,), ("data",), [DEVICE] * SHARDS),
+            f"{SHARDS} shards on one {DEVICE} device")
+
+
+def _blocks_of_source(src: np.ndarray, blocks) -> np.ndarray:
+    """The source rows of tiled blocks `blocks` (the corpus is a whole
+    number of blocks, tiled end to end)."""
+    per_tile = src.size // BLOCK
+    return src.reshape(per_tile, BLOCK)[np.asarray(blocks) % per_tile]
+
+
+def phase_shard(corpus, index, store):
+    """The 8 GiB "ra" store partitioned over a SHARDS-shard mesh
+    (`CompressedResidentStore.attach_sharded`): the replicated regime on
+    a 4096-block chunk against `Decoder.decode_blocks`; `ShardedExecutor`
+    fetches of B=1 and B=256 uniform read ids; `StreamingExecutor
+    (sharded=...)` over all 8 GiB at the stream phase's budget; a
+    per-shard cache of SHARD_CACHE slots under the cache phase's Zipf
+    batches; a lost shard healed under `on_error="repair"`; the
+    frontend's device budget. Every decoded byte is checked against the
+    source. The partition is released at the end."""
+    import torch
+    from repro_torch.api import ByteRange, GenomicArchive
+    from repro_torch.api.executors import ShardedExecutor, StreamingExecutor
+    from repro_torch.api.plan import QueryPlanner
+    from repro_torch.core.sharded_decode import sharded_decode_blocks
+    from repro_torch.kernels import ops
+    from repro_torch.resilience.faults import FaultInjector
+    from repro_torch.serving.frontend import ServingFrontend
+    mesh, placement = shard_mesh()
+    src = np.frombuffer(corpus, np.uint8)
+    starts = np.asarray(index.starts, np.int64)
+    dec = store.decoder
+    da = dec.da
+    n_blocks = da.n_blocks
+    n_reads = store.index.n_reads
+    planner = QueryPlanner(store)
+    rng = np.random.default_rng(SEED + 18)
+    out = {"phase": "shard", "shards": SHARDS, "placement": placement,
+           "devices": [str(d) for d in mesh.devices.flat]}
+    ops.reset_launches()
+    # the partition
+    base = _reset_peak()
+    t0 = time.perf_counter()
+    sr = store.attach_sharded(mesh)
+    sync()
+    out["partition_s"] = time.perf_counter() - t0
+    part = sr.part
+    flat_bytes = da.device_bytes
+    # the flat store keeps i64 word offsets; the reference's count is i32
+    flat_ref_bytes = flat_bytes - da.word_off.numel() * 4
+    out.update({
+        "bounds": part.bounds.tolist(), "nb_max": part.nb_max,
+        "w_max": part.w_max, "per_shard_bytes": sr.per_shard_bytes(),
+        "device_bytes": sr.device_bytes(),
+        "flat_compressed_device_bytes": flat_bytes,
+        "per_shard_over_flat": sr.per_shard_bytes() / flat_bytes,
+        "per_shard_over_flat_i32_offsets":
+            sr.per_shard_bytes() / flat_ref_bytes,
+        "partition_peak_bytes_above_residency": _peak_above(base)})
+    # the replicated regime: a 4096-block chunk across the shard bounds
+    lo = int(part.bounds[1]) - CHUNK // 2
+    sel = np.arange(lo, lo + CHUNK)
+    for name, fn in (("replicated", lambda: sharded_decode_blocks(
+            dec, sel, mesh)), ("flat", lambda: dec.decode_blocks(sel))):
+        fn()                                   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        rows = fn()
+        sync()
+        out[f"{name}_chunk_ms"] = (time.perf_counter() - t0) * 1e3
+        del rows
+    rep = sharded_decode_blocks(dec, sel, mesh)
+    flat = dec.decode_blocks(sel)
+    if not torch.equal(rep, flat) or not np.array_equal(
+            rep.cpu().numpy(), _blocks_of_source(src, sel)):
+        fail("the replicated sharded chunk is not Decoder.decode_blocks's "
+             "rows or the source")
+    del rep, flat
+    # ShardedExecutor on the partition: B=1 and B=256 fetches
+    sx = ShardedExecutor(store, mesh, residency="partition")
+    if sx.sharded is not sr:
+        fail("ShardedExecutor did not reuse the attached partition")
+    sx.run(planner.plan_read_ids(rng.integers(0, n_reads, 256)))
+    sync()
+    l0 = dict(ops.LAUNCHES)
+    b1_ms, got = [], []
+    for r in rng.integers(0, n_reads, SHARD_B1):
+        t0 = time.perf_counter()
+        rows, lens = sx.run(planner.plan_read_ids(np.array([r])))
+        sync()
+        b1_ms.append((time.perf_counter() - t0) * 1e3)
+        got.append((rows, lens, [r]))
+    l1 = dict(ops.LAUNCHES)
+    ids_b = [rng.integers(0, n_reads, 256) for _ in range(SHARD_BATCHES)]
+    t0 = time.perf_counter()
+    for ids in ids_b:
+        got.append((*sx.run(planner.plan_read_ids(ids)), ids))
+    sync()
+    b256_s = time.perf_counter() - t0
+    l2 = dict(ops.LAUNCHES)
+    for rows, lens, ids in got:
+        _check_reads(rows, lens, ids, corpus, starts)
+    del got
+    out.update({
+        "b1_p50_ms": float(np.percentile(b1_ms, 50)),
+        "b1_p90_ms": float(np.percentile(b1_ms, 90)),
+        "b256_reads_per_s": 256 * SHARD_BATCHES / b256_s,
+        "b256_ms_per_batch": b256_s * 1e3 / SHARD_BATCHES,
+        "launches_per_b1_fetch": {k: (l1[k] - l0[k]) / SHARD_B1
+                                  for k in l0},
+        "launches_per_b256_fetch": {k: (l2[k] - l1[k]) / SHARD_BATCHES
+                                    for k in l0},
+        "reads_checked": SHARD_B1 + 256 * SHARD_BATCHES})
+    # sharded streaming of all 8 GiB under the stream phase's budget
+    whole = np.empty(da.raw_size, np.uint8)
+    st = StreamingExecutor(store, max_resident_bytes=STREAM_BUDGET,
+                           sharded=sr)
+    base = _reset_peak()
+    pos = 0
+    t0 = time.perf_counter()
+    for chunk in st.chunks([ByteRange(0, da.raw_size)]):
+        whole[pos:pos + chunk.size] = chunk
+        pos += chunk.size
+    stream_s = time.perf_counter() - t0
+    out["stream"] = {
+        "bytes": pos, "chunks": len(st.chunk_log), "s": stream_s,
+        "GBps": pos / stream_s / 1e9, "max_resident_bytes": STREAM_BUDGET,
+        "peak_device_bytes_above_resident": _peak_above(base),
+        "max_chunk_resident_bytes": max(c.resident_bytes
+                                        for c in st.chunk_log)}
+    check_all(whole[:pos], src, "sharded stream")
+    del whole, st, sx, sr, part
+    # the per-shard cache under the cache phase's Zipf(1.1) batches
+    sx = ShardedExecutor(store, mesh, cache_blocks=SHARD_CACHE)
+    cdf = np.cumsum(1.0 / np.arange(1, n_reads + 1) ** 1.1)
+    cdf /= cdf[-1]
+    perm = rng.permutation(n_reads)
+
+    def batch():
+        return perm[np.minimum(np.searchsorted(cdf, rng.random(256)),
+                               n_reads - 1)]
+
+    def run(n):
+        info0 = sx.cache_info()
+        got = []
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ids = batch()
+            got.append((*sx.run(planner.plan_read_ids(ids)), ids))
+        sync()
+        s = time.perf_counter() - t0
+        for rows, lens, ids in got:
+            _check_reads(rows, lens, ids, corpus, starts)
+        info = sx.cache_info()
+        hits = info["hits"] - info0["hits"]
+        misses = info["misses"] - info0["misses"]
+        return {"batches": n, "hit_rate": hits / (hits + misses),
+                "reads_per_s": n * 256 / s,
+                "evictions": info["evictions"] - info0["evictions"]}
+
+    cold = run(64)
+    fill = 0
+    while sx.cache_info()["evictions"] == 0:
+        if fill == 1024:
+            fail(f"the sharded cache never evicted: {sx.cache_info()}")
+        sx.run(planner.plan_read_ids(batch()))
+        fill += 1
+    steady = run(64)
+    info = sx.cache_info()
+    out["cache"] = {"slots_per_shard": SHARD_CACHE,
+                    "slots": SHARD_CACHE * SHARDS, "cold": cold,
+                    "batches_to_first_eviction": fill, "steady": steady,
+                    "per_shard_resident": [p["resident"]
+                                           for p in info["per_shard"]],
+                    "buffer_bytes": info["buffer_bytes"]}
+    del sx
+    # a lost shard, healed from the host copy under on_error="repair"
+    sr = store.attach_sharded(mesh, verify=True, on_error="repair")
+    uniq = np.sort(rng.choice(n_blocks, SHARD_HEAL, replace=False))
+    want = _blocks_of_source(src, uniq)
+    sync()
+    t0 = time.perf_counter()
+    clean = sr.rows_for_blocks(uniq)
+    sync()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(clean.cpu().numpy(), want):
+        fail("the verified sharded rows are not the source")
+    del clean
+    ev = FaultInjector(seed=18).drop_shard(sr, shard=1)
+    t0 = time.perf_counter()
+    healed = sr.rows_for_blocks(uniq)
+    sync()
+    heal_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(healed.cpu().numpy(), want):
+        fail("rows after the lost shard are not the source")
+    if sr.shard_rebuilds < 1:
+        fail("the lost shard was not rebuilt")
+    del healed
+    owners = np.bincount(sr.part.shard_of(uniq), minlength=SHARDS)
+    out["heal"] = {"event": ev, "blocks": SHARD_HEAL,
+                   "blocks_per_shard": owners.tolist(),
+                   "verified_clean_ms": clean_ms,
+                   "heal_and_rebuild_ms": heal_ms,
+                   "shard_rebuilds": sr.shard_rebuilds,
+                   "recover_info": dec.recover_info()}
+    if not owners.all():
+        fail(f"the healed blocks miss a shard: {owners}")
+    fe = ServingFrontend(GenomicArchive(store))
+    out["frontend_device_bytes"] = fe.device_bytes()
+    if fe.device_bytes() != sr.device_bytes():
+        fail(f"ServingFrontend.device_bytes {fe.device_bytes()} != "
+             f"{sr.device_bytes()}")
+    launches = dict(ops.LAUNCHES)
+    out["launches"] = launches
+    emit(out)
+    store.sharded = None
+    del sr, fe
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_train_dp(corpus, index, store):
+    """Data-parallel training in an NCCL world of one
+    (`repro_torch.launch.mesh.dp_group`) on `TRAIN_ARCH` as published,
+    fed the train phase's batches from the 8 GiB store: at PLAIN_LAYERS
+    layers, DP_STEPS `make_manual_dp_step` steps bit-equal to as many
+    `make_train_step` steps from the same state (losses and every leaf);
+    at full depth DP_FULL_STEPS steps uncompressed and with the int8
+    gradient all-reduce (step ms, tokens/s, peak above residency, the
+    compressed gradients' worst error over the quantum); then the
+    launcher with --manual-dp --grad-compress in a process of its own."""
+    import tempfile
+    import torch
+    from repro_torch.api import GenomicArchive
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import dp_group, make_local_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.training import grad_compress as gc
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (_loss_and_grads,
+                                                 init_train_state,
+                                                 make_manual_dp_step,
+                                                 make_train_step)
+    starts = np.asarray(index.starts, np.int64)
+    ds = GenomicArchive(store).dataset(batch_size=TRAIN_BATCH,
+                                       seq_len=TRAIN_SEQ, prefetch=0,
+                                       seed=SEED)
+    ops.reset_launches()
+    batches = [ds.batch_at(i) for i in range(max(DP_STEPS, DP_FULL_STEPS))]
+    for i, b in enumerate(batches):
+        _check_tokens(b, ds.sampler.sample(i), corpus, starts,
+                      f"train_dp batch {i}")
+    out = {"phase": "train_dp", "arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ}
+    with dp_group(DEVICE):
+        mesh = make_local_mesh()
+        out["world"] = mesh.size
+        # PLAIN_LAYERS layers at full width: DP against the plain step
+        model = build_model(train_config(PLAIN_LAYERS))
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=8)
+
+        def fresh(m):
+            return init_train_state(
+                m, torch.Generator(device=DEVICE).manual_seed(SEED + 3), opt)
+
+        plain, dp = fresh(model), fresh(model)
+        step = make_train_step(model, opt, remat="none")
+        dstep = make_manual_dp_step(model, opt, mesh, remat="none")
+        same = []
+        for i in range(DP_STEPS):
+            plain, pm = step(plain, batches[i])
+            dp, dm = dstep(dp, batches[i], 1)
+            same.append(bool(torch.equal(pm["loss"], dm["loss"])))
+        leaves_equal = all(torch.equal(plain[g][k], dp[g][k])
+                           for g in ("params",) for k in plain[g]) and all(
+            torch.equal(plain["opt"][m][k], dp["opt"][m][k])
+            for m in ("m", "v") for k in plain["opt"][m])
+        out["short"] = {"n_layers": PLAIN_LAYERS, "steps": DP_STEPS,
+                        "losses_bit_equal": same,
+                        "leaves_bit_equal": leaves_equal,
+                        "losses": [float(pm["loss"])]}
+        del plain, dp, model
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        if not (all(same) and leaves_equal):
+            fail(f"the world-of-one DP step is not the plain step: {out}")
+        # full depth, uncompressed then compressed
+        model = build_model(train_config())
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=DP_FULL_STEPS)
+        runs = {}
+        for compress in (False, True):
+            base = _reset_peak()
+            state = fresh(model)
+            dstep = make_manual_dp_step(model, opt, mesh, remat="none",
+                                        compress=compress)
+            losses, ms = [], []
+            for i in range(DP_FULL_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                state, m = dstep(state, batches[i], 1)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            timed = ms[1:]
+            runs["int8" if compress else "fp"] = {
+                "losses": losses, "step_ms": ms,
+                "step_ms_median": float(np.median(timed)),
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                / (float(np.median(timed)) / 1e3),
+                "peak_bytes_above_residency": _peak_above(base)}
+            del state
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+        # the compressed mean of one batch's gradients over the quantum
+        params = model.init(
+            torch.Generator(device=DEVICE).manual_seed(SEED + 3))
+        # (in fp32: the step's bf16 gradients would add their own rounding
+        # to the quantization error)
+        _, grads = _loss_and_grads(model, params, batches[0], "none")
+        grads = {k: g.float() for k, g in grads.items()}
+        comp = gc.compress_tree_psum(grads, 1)
+        q_err = {k: float((comp[k] - grads[k]).abs().max()
+                          / (grads[k].abs().max().clamp_min(1e-12) / 127))
+                 for k in grads}
+        del params, grads, comp, model
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    worst = max(q_err, key=q_err.get)
+    out.update({"full": {"n_layers": train_config().n_layers, **runs},
+                "grad_err_over_quantum_max": q_err[worst],
+                "grad_err_worst_leaf": worst,
+                "step1_loss_diff": abs(runs["int8"]["losses"][0]
+                                       - runs["fp"]["losses"][0])})
+    for r in runs.values():
+        if not all(np.isfinite(r["losses"])):
+            fail(f"a data-parallel loss is not finite: {runs}")
+    if out["step1_loss_diff"] > 0.05:
+        fail(f"compressed step-1 loss off by {out['step1_loss_diff']}")
+    if q_err[worst] > 1.01:
+        fail(f"compressed gradients past one quantum: {worst} "
+             f"{q_err[worst]}")
+    launches = dict(ops.LAUNCHES)
+    # the launcher, in a process of its own
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+             "--manual-dp", "--grad-compress", "--steps", "4", "--batch",
+             "4", "--seq", "64", "--reads", "400", "--block", "4096",
+             "--prefetch", "0", "--device", DEVICE, "--archive",
+             os.path.join(d, "c.acegad"), "--ckpt-dir",
+             os.path.join(d, "ck")],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    lines = res.stdout.splitlines()
+    out["launcher"] = {"rc": res.returncode,
+                       "s": time.perf_counter() - t0,
+                       "lines": [ln for ln in lines
+                                 if "data-parallel" in ln
+                                 or "training complete" in ln]}
+    out["launches"] = launches
+    emit(out)
+    if (res.returncode
+            or "data-parallel over 1 rank(s) (grad_compress=True)"
+            not in res.stdout or "training complete; 4" not in res.stdout):
+        fail(f"train launcher --manual-dp: rc {res.returncode}: "
+             f"{lines[-6:]} {res.stderr[-1500:]}")
+    return launches, out
+
+
 def phase_train_resilient():
     """The port's launcher flow (`repro_torch.launch.train`) at the reduced
     config in a temp dir: the corpus encoded once and saved, reopened
@@ -2059,8 +2455,10 @@ def main() -> None:
     paths["partial"] = phase_partial(corpus, index, heal_store)
     del heal_store
     paths["serve"] = phase_serve(corpus, index, tiled)
+    paths["shard"], shard = phase_shard(corpus, index, store)
     paths["train"], train = phase_train(corpus, index, store)
     plain = phase_train_plain(store)
+    paths["train_dp"], dp = phase_train_dp(corpus, index, store)
     paths["checkpoint"], resilient = phase_train_resilient()
     phase_chaos()
     paths["tune"] = phase_tune(corpus, index)
@@ -2071,12 +2469,12 @@ def main() -> None:
     # the paths each kernel runs on, and those it must not
     runs_on = {"rans_decode": ("decode", "fetch", "global", "stream",
                                "cache", "heal", "partial", "serve",
-                               "train", "checkpoint", "tune",
-                               "serve_model", "serve_model_plain"),
+                               "shard", "train", "train_dp", "checkpoint",
+                               "tune", "serve_model", "serve_model_plain"),
                "lz77_match": ("decode", "fetch", "mode1", "stream",
                               "cache", "heal", "partial", "serve",
-                              "train", "checkpoint", "tune",
-                              "serve_model", "serve_model_plain")}
+                              "shard", "train", "train_dp", "checkpoint",
+                              "tune", "serve_model", "serve_model_plain")}
     for k, on in runs_on.items():
         for path, counts in paths.items():
             if (path in on) != bool(counts[k]):
@@ -2102,7 +2500,18 @@ def main() -> None:
           "serve_peak_bytes_above_residency":
               served["peak_bytes_above_residency"],
           "serve_plain_logits_rel_err_max":
-              served_plain["logits_rel_err_max"]})
+              served_plain["logits_rel_err_max"],
+          "shard_per_shard_over_flat": shard["per_shard_over_flat"],
+          "shard_b1_p50_ms": shard["b1_p50_ms"],
+          "shard_b256_reads_per_s": shard["b256_reads_per_s"],
+          "shard_stream_GBps": shard["stream"]["GBps"],
+          "shard_cache_hit_rate_steady": shard["cache"]["steady"]["hit_rate"],
+          "shard_heal_and_rebuild_ms": shard["heal"]["heal_and_rebuild_ms"],
+          "train_dp_step_ms_median": dp["full"]["fp"]["step_ms_median"],
+          "train_dp_int8_step_ms_median":
+              dp["full"]["int8"]["step_ms_median"],
+          "train_dp_grad_err_over_quantum_max":
+              dp["grad_err_over_quantum_max"]})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

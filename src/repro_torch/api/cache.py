@@ -24,6 +24,9 @@ whichever anchor window materialized it — while the miss decode groups
 the miss set by anchor window. The window rows the miss decode
 materialized beyond the requested blocks co-install into free slots
 (`install_extras`), so a scan over a window costs one decode.
+
+`ShardedBlockCache` composes one planning-only `BlockCache` per shard of
+a mesh-partitioned archive with one slot tensor on each shard's device.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.api.plan import CachePlan, split_cache_hits
-from repro_torch.core.decoder import _not_in_slice, _pad_pow2
+from repro_torch.api.plan import (CachePlan, shard_selection,
+                                  split_cache_hits, split_shards)
+from repro_torch.core.decoder import _pad_pow2
 
 
 # ------------------------------------------------------------------ policies
@@ -309,12 +313,14 @@ class BlockCache:
     assignment (mutating the maps and policy state); `realize(plan,
     decode)` turns it into bytes — at most one decode call (the
     pow2-padded miss set) and one install/gather on the device.
+    `device_buffer=False` keeps the host planning state only (slot maps,
+    counters, policy): `ShardedBlockCache` owns the slot tensors then.
     """
 
     def __init__(self, capacity: int, block_size: int, n_blocks: int,
                  policy: Union[str, EvictionPolicy] = "lru",
                  block_rounds: Optional[np.ndarray] = None,
-                 device="cuda"):
+                 device="cuda", device_buffer: bool = True):
         if capacity <= 0:
             raise ValueError(f"capacity must be positive, got {capacity}")
         self.capacity = int(capacity)
@@ -323,7 +329,8 @@ class BlockCache:
         self.block_rounds = block_rounds  # i32[n_blocks] scheduled resolve
                                           # rounds (None = legacy archive)
         self.device = torch.device(device)
-        self.buf = self._zeros(self.capacity)
+        self.device_buffer = bool(device_buffer)
+        self.buf = self._zeros(self.capacity) if self.device_buffer else None
         self.slot_block = np.full(self.capacity, -1, np.int64)
         self.slot_of = np.full(self.n_blocks, -1, np.int32)
         self.policy = make_policy(policy)
@@ -432,7 +439,8 @@ class BlockCache:
         install error, because `plan` has already registered the miss
         blocks as resident — serving stale rows for them later would
         break bit-perfectness silently."""
-        self.buf = self._zeros(self.capacity)
+        if self.device_buffer:
+            self.buf = self._zeros(self.capacity)
         self.slot_block.fill(-1)
         self.slot_of.fill(-1)
         self.policy.bind(self)
@@ -444,6 +452,10 @@ class BlockCache:
         one buffer gather; otherwise the miss set decodes in ONE
         pow2-padded decode call, the admitted rows install into the buffer
         in place, and hits and misses gather into the output."""
+        if not self.device_buffer:
+            raise RuntimeError(
+                "planning-only BlockCache (device_buffer=False) cannot "
+                "realize — the ShardedBlockCache owns the slot tensors")
         U = cp.n_uniq
         if U == 0:
             return self._zeros(0)
@@ -529,7 +541,199 @@ class BlockCache:
 
 
 class ShardedBlockCache:
-    """Per-shard caches over a mesh-partitioned archive: not ported yet."""
+    """Per-shard decoded-block caching over a mesh-partitioned archive.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_in_slice("ShardedBlockCache", "multi-GPU residency")
+    Composition, not reimplementation: each shard gets its own host-side
+    `BlockCache` planning instance (`device_buffer=False` — slot maps,
+    counters and a full `EvictionPolicy`, keyed by GLOBAL block ids, so
+    every policy incl. `TenantPartitionPolicy`/`TinyLFUPolicy` works
+    unchanged), while the decoded rows live in one (capacity, block_size)
+    u8 slot tensor on each shard's device, in place of the reference's
+    stacked mesh-sharded buffer.
+
+    A request's unique covering set splits per owning shard; each shard
+    runs its own hit/miss split (its own CachePlan), the combined miss
+    set decodes once a shard per scheduled round group, the new rows
+    install shard-locally, and only the requested rows move to `device`
+    (default: shard 0's device).
+
+    `policy` is a name or a ZERO-ARG factory (each shard needs its own
+    policy instance — shared mutable state across shards would corrupt
+    the slot maps).
+    """
+
+    def __init__(self, capacity_per_shard: int, block_size: int,
+                 n_blocks: int, part, policy="lru",
+                 block_rounds: Optional[np.ndarray] = None, device=None):
+        if isinstance(policy, EvictionPolicy):
+            raise TypeError(
+                "ShardedBlockCache needs one policy instance PER shard — "
+                "pass a name ('lru'/'freq'/'tinylfu') or a zero-arg "
+                "factory, not a shared instance")
+        factory = policy if callable(policy) else (
+            lambda: make_policy(policy))
+        self.part = part
+        self.capacity = int(capacity_per_shard)
+        self.block_size = int(block_size)
+        self.n_blocks = int(n_blocks)
+        self.block_rounds = block_rounds
+        self.device = torch.device(device if device is not None
+                                   else part.devices[0])
+        self.shards = [
+            BlockCache(self.capacity, self.block_size, self.n_blocks,
+                       policy=factory(), block_rounds=block_rounds,
+                       device=dev, device_buffer=False)
+            for dev in part.devices]
+        self.bufs = [self._zeros(dev) for dev in part.devices]
+        self.decode_launches = 0
+
+    def _zeros(self, dev) -> torch.Tensor:
+        return torch.zeros((self.capacity, self.block_size),
+                           dtype=torch.uint8, device=dev)
+
+    # --------------------------------------------------------------- stats
+    @property
+    def hits(self) -> int:
+        return sum(c.hits for c in self.shards)
+
+    @property
+    def misses(self) -> int:
+        return sum(c.misses for c in self.shards)
+
+    @property
+    def buffer_bytes(self) -> int:
+        return self.part.n_shards * self.capacity * self.block_size
+
+    @property
+    def per_shard_buffer_bytes(self) -> int:
+        return self.capacity * self.block_size
+
+    def info(self) -> dict:
+        """Aggregate counters in `BlockCache.info` shape, plus the
+        per-shard accounting (`per_shard`: one info dict per shard)."""
+        per = [c.info() for c in self.shards]
+        agg = {k: sum(p[k] for p in per)
+               for k in ("capacity", "resident", "hits", "misses",
+                         "evictions", "installs", "coinstalls",
+                         "bytes_resident")}
+        agg["buffer_bytes"] = self.buffer_bytes
+        agg["decode_launches"] = self.decode_launches
+        agg["policy"] = f"sharded[{self.part.n_shards}x{per[0]['policy']}]"
+        agg["per_shard"] = per
+        return agg
+
+    def reset(self) -> None:
+        for c in self.shards:
+            c.reset()
+        self.bufs = [self._zeros(dev) for dev in self.part.devices]
+
+    def invalidate(self, blocks: np.ndarray) -> int:
+        """Evict global block ids from whichever shard's slot map holds
+        them (the quarantine path — see `BlockCache.invalidate`)."""
+        return sum(c.invalidate(blocks) for c in self.shards)
+
+    def _gather(self, rows: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+        return rows.index_select(0, torch.from_numpy(
+            np.ascontiguousarray(idx, np.int64)).to(rows.device))
+
+    # ------------------------------------------------------------ rows_for
+    def rows_for(self, uniq: np.ndarray, decode_stacked) -> torch.Tensor:
+        """(U,) unique global block ids → (U, block_size) rows on
+        `device` through the per-shard caches. `decode_stacked(loc
+        (n_shards, M) i32, n_rounds, valid bool(n_shards, M))` returns
+        n_shards (M, block_size) row tensors, shard s's on its device
+        (`ShardedResidency._decode_stacked`)."""
+        part = self.part
+        uniq = np.asarray(uniq, np.int64).reshape(-1)
+        U = uniq.size
+        out = torch.zeros((U, self.block_size), dtype=torch.uint8,
+                          device=self.device)
+        if U == 0:
+            return out
+        shard, _ = split_shards(uniq, part.bounds)
+        src_is_miss = np.zeros(U, bool)
+        src_idx = np.zeros(U, np.int64)
+        # per-shard hit/miss split: each shard's own CachePlan
+        miss_shard, miss_local, miss_upos, miss_slot = [], [], [], []
+        for s in range(part.n_shards):
+            idx_s = np.flatnonzero(shard == s)
+            if idx_s.size == 0:
+                continue
+            cp = self.shards[s].plan(uniq[idx_s])
+            src_is_miss[idx_s] = cp.src_is_miss
+            src_idx[idx_s[~cp.src_is_miss]] = cp.src_idx[~cp.src_is_miss]
+            m_upos = idx_s[cp.src_is_miss]
+            miss_shard.append(np.full(m_upos.size, s, np.int64))
+            miss_local.append(uniq[m_upos] - part.bounds[s])
+            miss_upos.append(m_upos)
+            miss_slot.append(cp.install_slots)
+        m_upos = np.concatenate(miss_upos)
+        miss_rows = [None] * part.n_shards
+        try:
+            if m_upos.size:
+                m_shard = np.concatenate(miss_shard)
+                m_local = np.concatenate(miss_local)
+                m_slot = np.concatenate(miss_slot).astype(np.int64)
+                m_col = self._decode_misses(uniq[m_upos], m_shard, m_local,
+                                            decode_stacked, miss_rows)
+                src_idx[m_upos] = m_col
+                # installs, shard-locally (slot == capacity: not admitted)
+                for s in np.unique(m_shard):
+                    keep = np.flatnonzero((m_shard == s)
+                                          & (m_slot < self.capacity))
+                    if keep.size:
+                        buf = self.bufs[s]
+                        buf.index_copy_(
+                            0, torch.from_numpy(m_slot[keep]).to(buf.device),
+                            self._gather(miss_rows[s], m_col[keep]))
+            # the requested rows only: hits from their shard's slots,
+            # misses straight from their shard's fresh decode
+            for s in np.unique(shard):
+                for miss in (False, True):
+                    pos = np.flatnonzero((shard == s)
+                                         & (src_is_miss == miss))
+                    if pos.size:
+                        src = miss_rows[s] if miss else self.bufs[s]
+                        out.index_copy_(
+                            0, torch.from_numpy(pos).to(self.device),
+                            self._gather(src, src_idx[pos]).to(self.device))
+        except BaseException:
+            # the per-shard plans already marked the misses resident —
+            # drop everything rather than serve rows never installed
+            self.reset()
+            raise
+        return out
+
+    def _decode_misses(self, m_gid, m_shard, m_local, decode_stacked,
+                       miss_rows: list) -> np.ndarray:
+        """Depth-bucketed miss decode: one per-shard decode per scheduled
+        round group; a shard with no miss in a bucket decodes nothing
+        there (its slots are never installed, never read). Fills `miss_rows`
+        (per shard, the buckets' rows one after another) and returns each
+        miss's row in its shard's rows."""
+        part = self.part
+        if self.block_rounds is not None:
+            r = self.block_rounds[m_gid]
+            buckets = [(int(v), np.flatnonzero(r == v))
+                       for v in np.unique(r)]
+        else:
+            buckets = [(-1, np.arange(m_gid.size))]
+        pieces, widths, col_off = [], [], 0
+        m_col = np.zeros(m_gid.size, np.int64)
+        for rounds, bidx in buckets:
+            loc, flat_idx, valid = shard_selection(
+                m_shard[bidx], m_local[bidx], part.n_shards)
+            M = loc.shape[1]
+            m_col[bidx] = col_off + flat_idx % M
+            pieces.append(decode_stacked(loc, rounds, valid))
+            widths.append(M)
+            self.decode_launches += 1
+            col_off += M
+        for s, dev in enumerate(part.devices):
+            # a shard with no miss in a bucket decoded nothing there: an
+            # unwritten stand-in keeps the buckets' column offsets
+            rows = [p[s] if p[s] is not None else torch.empty(
+                (M, self.block_size), dtype=torch.uint8, device=dev)
+                for p, M in zip(pieces, widths)]
+            miss_rows[s] = rows[0] if len(rows) == 1 else torch.cat(rows)
+        return m_col

@@ -14,9 +14,13 @@ StreamingExecutor  — a VRAM-budgeted chunked iterator over a plan: the
                      paper's §5 range decode generalized, so ANY query
                      streams in chunks of `max_resident_bytes` accounted
                      bytes, at a device peak that does not grow with the
-                     query's size.
-
-The sharded executor comes with the multi-GPU slice of the port.
+                     query's size. `sharded=` streams a mesh-partitioned
+                     archive under a PER-SHARD budget.
+ShardedExecutor    — the plan's unique-block selection fanned out over a
+                     device mesh: a partitioned archive
+                     (`ShardedResidency`, with its per-shard cache) or a
+                     replicated one (`sharded_decode_blocks`), then the
+                     same gather on the assembled rows.
 """
 from __future__ import annotations
 
@@ -28,9 +32,9 @@ import torch
 
 from repro_torch.api.address import Address
 from repro_torch.api.plan import DecodePlan, QueryPlanner, anchor_floor
-from repro_torch.core.decoder import _not_in_slice, _pad_pow2
-from repro_torch.core.residency import (_fetch_dev_core, _fetch_reads_core,
-                                        _gather_reads_core)
+from repro_torch.core.decoder import BlockDigestError, _pad_pow2
+from repro_torch.core.residency import (_cache_off, _fetch_dev_core,
+                                        _fetch_reads_core, _gather_reads_core)
 from repro_torch.resilience import check_on_error
 
 
@@ -194,7 +198,14 @@ class StreamingExecutor:
     rows are cropped to spans; `on_error` picks what a mismatch does
     ("raise" `BlockDigestError` naming the true block id, parity
     "repair", or "partial": quarantined blocks stream as zeros).
-    `sharded=` comes with the multi-GPU slice of the port.
+
+    `sharded=` (a `ShardedResidency`) switches the budget to PER-SHARD
+    residency: a chunk costs, summed over its depth buckets, the most
+    blocks any one shard owns of it; decodes run partitioned (each device
+    materializes only its own rows, exact-size, cache bypassed), and
+    `ChunkStats.decoded_bytes` counts per-shard materialized bytes — so a
+    mesh-partitioned archive streams a query n_shards times larger under
+    the same per-device budget.
     """
 
     def __init__(self, store, max_resident_bytes: Optional[int] = None,
@@ -202,14 +213,20 @@ class StreamingExecutor:
                  mode2: bool = True, planner: Optional[QueryPlanner] = None,
                  verify: bool = False, sharded=None,
                  on_error: str = "raise"):
-        if sharded is not None:
-            raise _not_in_slice("StreamingExecutor(sharded=...)",
-                                "multi-GPU residency")
         self.on_error = check_on_error(on_error)
         self.store = store
         self.planner = planner or QueryPlanner(store)
         bs = store.block_size
         da = store.decoder.da
+        if sharded is not None and da.mode == "global":
+            raise ValueError(
+                "sharded streaming needs a partitioned archive — global/"
+                "wavefront archives cannot partition (decode windows "
+                "cross block bounds)")
+        if sharded is not None and not mode2:
+            raise ValueError("sharded streaming is mode-2 only (the host "
+                             "entropy stage has no partitioned path)")
+        self.sharded = sharded
         self._global = da.mode == "global"
         self._anchors = (da.anchors if self._global
                          else np.zeros(0, np.int64))
@@ -278,6 +295,23 @@ class StreamingExecutor:
             b_lo = int(anchor_floor(np.asarray([b_lo]), self._anchors)[0])
         return set(range(b_lo, b_hi))
 
+    def _per_shard_blocks(self, blocks: set) -> int:
+        """A partitioned chunk's decode cost in blocks: each device
+        materializes only its own rows, one exact-size decode per depth
+        bucket, so the SUM over buckets of the most blocks any one shard
+        owns in that bucket (what `_decode_uncached(pad=False)`
+        materializes per shard)."""
+        part = self.sharded.part
+        blk = np.fromiter(blocks, np.int64, len(blocks))
+        sh = part.shard_of(blk)
+        br = self.store.decoder.block_rounds
+        if br is None:
+            return int(np.bincount(sh, minlength=part.n_shards).max())
+        r = br[blk]
+        return sum(int(np.bincount(sh[r == v],
+                                   minlength=part.n_shards).max())
+                   for v in np.unique(r))
+
     def chunks(self, addrs: Sequence[Address]) -> Iterator[np.ndarray]:
         """Yield u8 chunks; their concatenation == the concatenation of the
         addressed payloads, in address order."""
@@ -298,7 +332,8 @@ class StreamingExecutor:
                 nblk = n_blocks
             else:
                 pb = self._piece_blocks(s, ln)
-                nblk = len(cur_blocks | pb)
+                nblk = (len(cur_blocks | pb) if self.sharded is None
+                        else self._per_shard_blocks(cur_blocks | pb))
             # plan_spans pow2-pads the span batch, so the gather output a
             # chunk materializes is pow2(B) * max_len — cost it that way
             cost = nblk * bs + pow2(len(cur) + 1) * max(cur_maxlen, ln)
@@ -323,10 +358,19 @@ class StreamingExecutor:
         # and break the budget. The block cache is bypassed.
         uniq = plan.host_cover()[3]
         dec = self.store.decoder
-        decode = (dec.decode_blocks if self.mode2
-                  else dec.decode_blocks_host_entropy)
-        rows = decode(uniq, verify=self.verify, pad_groups=False,
-                      on_error=self.on_error)
+        if self.sharded is not None:
+            # partitioned: exact-size per-shard decode, cache bypassed;
+            # decoded_blocks_last then counts PER-SHARD materialized rows
+            # — the quantity the per-shard budget bounds
+            dec.launch_rounds_last = []
+            dec.decoded_blocks_last = 0
+            rows = self.sharded.stream_rows(uniq, verify=self.verify,
+                                            on_error=self.on_error)
+        else:
+            decode = (dec.decode_blocks if self.mode2
+                      else dec.decode_blocks_host_entropy)
+            rows = decode(uniq, verify=self.verify, pad_groups=False,
+                          on_error=self.on_error)
         # one device-to-host copy of the chunk, cut into pieces on the host
         host = _gather_plan(rows, plan)[:plan.n_queries].cpu().numpy()
         parts = [host[i, :int(lengths[i])] for i in range(len(pieces))]
@@ -345,7 +389,121 @@ class StreamingExecutor:
 
 
 class ShardedExecutor:
-    """A plan's decode fanned out over several cards: not ported yet."""
+    """Execute a plan with the unique-block decode fanned out over a mesh.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_in_slice("ShardedExecutor", "multi-GPU residency")
+    Two residency regimes (`residency`):
+
+      "partition"  — blocks partition into contiguous per-shard ranges
+          and each device holds ONLY its slice of the compressed payload
+          (`repro_torch.core.residency.ShardedResidency`): compressed
+          residency scales with mesh width. Decoded rows ride the
+          per-shard block cache when `cache_blocks > 0` (any named policy
+          or zero-arg factory, incl. "tinylfu"), and only requested rows
+          move to the store's device.
+      "replicate"  — the compressed archive is replicated and only the
+          decode *work* (the block selection) shards: the small-archive
+          path.
+      "auto" (default) — partition when the archive can ("ra" mode with
+          at least one block per shard), replicate otherwise.
+
+    Both regimes are depth-bucketed (one decode a shard per
+    scheduled-rounds group) and `verify=True` digest-checks decoded
+    blocks — shard-locally BEFORE assembly on the partitioned path, so
+    `BlockDigestError` names the true global block id. Mode-2 only.
+    """
+
+    def __init__(self, store, mesh, axes: Tuple[str, ...] = ("data",),
+                 residency: str = "auto", cache_blocks: int = 0,
+                 cache_policy="lru", verify: bool = False,
+                 on_error: str = "raise"):
+        from repro_torch.launch.mesh import mesh_shards
+        if residency not in ("auto", "partition", "replicate"):
+            raise ValueError(
+                f"residency={residency!r} not in "
+                f"('auto', 'partition', 'replicate')")
+        self.store = store
+        self.mesh = mesh
+        self.axes = tuple(axes)
+        self.verify = verify
+        self.on_error = check_on_error(on_error)
+        dec = store.decoder
+        if residency == "auto":
+            residency = ("partition"
+                         if dec.da.mode == "ra"
+                         and dec.da.n_blocks >= mesh_shards(mesh, self.axes)
+                         else "replicate")
+        self.residency = residency
+        if residency == "partition":
+            attach = getattr(store, "attach_sharded", None)
+            if attach is not None:
+                self.sharded = attach(mesh, axes=self.axes,
+                                      cache_blocks=cache_blocks,
+                                      cache_policy=cache_policy,
+                                      verify=verify, on_error=on_error)
+            else:   # bare-decoder store adapter: own the residency here
+                from repro_torch.core.residency import ShardedResidency
+                self.sharded = ShardedResidency(
+                    store, mesh, axes=self.axes, cache_blocks=cache_blocks,
+                    cache_policy=cache_policy, verify=verify,
+                    on_error=on_error)
+        else:
+            if cache_blocks:
+                raise ValueError(
+                    "cache_blocks needs the partitioned regime (the "
+                    "replicated path has no per-shard slot tensors) — "
+                    "pass residency='partition'")
+            self.sharded = None
+
+    def cache_info(self) -> dict:
+        if self.sharded is None:
+            return _cache_off()
+        return self.sharded.cache_info()
+
+    def run(self, plan: DecodePlan) -> Tuple[torch.Tensor, torch.Tensor]:
+        from repro_torch.core.sharded_decode import sharded_decode_blocks
+        dec = self.store.decoder
+        dev = dec.device
+        B = plan.n_queries
+        if B == 0:
+            return (torch.zeros((0, plan.max_len), dtype=torch.uint8,
+                                device=dev),
+                    torch.zeros((0,), dtype=torch.int32, device=dev))
+        uniq = plan.host_cover()[3]
+        if self.sharded is not None:
+            # partitioned: the residency plane owns the per-shard split,
+            # the cache, depth bucketing, shard-local verify and the
+            # parity recovery loop — never this executor
+            rows = self.sharded.rows_for_blocks(uniq,
+                                                on_error=self.on_error)
+        else:
+            dec.launch_rounds_last = []
+            # depth-bucketed fan-out: one sharded decode per resolve-round
+            # group, so a shallow bucket's shards stop after ITS rounds
+            groups = plan.depth_groups()
+            if groups is None or (len(groups) == 1
+                                  and groups[0][0] >= (dec.da.max_depth
+                                                       or 0)):
+                rows = sharded_decode_blocks(dec, uniq, self.mesh,
+                                             self.axes)
+            else:
+                parts = [sharded_decode_blocks(dec, uniq[idx], self.mesh,
+                                               self.axes, n_rounds=rounds)
+                         for rounds, idx in groups]
+                order = np.concatenate([idx for _, idx in groups])
+                inv = np.empty(uniq.size, np.int64)
+                inv[order] = np.arange(uniq.size)
+                rows = torch.cat(parts)[_dev(inv, dev)]
+            if self.verify:
+                try:
+                    dec.verify_rows(uniq, rows)
+                except BlockDigestError:
+                    if self.on_error == "raise":
+                        raise
+                    # replicated regime: the whole archive is on every
+                    # device, so recovery is a verified re-decode through
+                    # the decoder's parity loop
+                    rows = dec.decode_blocks(
+                        _pad_pow2(uniq), verify=True,
+                        on_error=self.on_error)[:uniq.size]
+        return (_gather_plan(rows, plan)[:B],
+                _dev(plan.lengths[:B], dev, np.int32))

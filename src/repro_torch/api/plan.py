@@ -80,6 +80,54 @@ def anchor_window_groups(sel: np.ndarray, anchors: np.ndarray) -> list:
     return groups
 
 
+def split_shards(blocks: np.ndarray, bounds: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Global block ids → (owning shard, shard-local id) under a
+    contiguous block partition. `bounds` is the i64[n_shards + 1]
+    boundary table of a `ShardPartition` (bounds[s] .. bounds[s+1] is
+    shard s's range). THE host implementation of the shard coordinate
+    map — the residency, cache and executor layers all route through
+    here."""
+    blocks = np.asarray(blocks, np.int64).reshape(-1)
+    bounds = np.asarray(bounds, np.int64)
+    shard = np.searchsorted(bounds[1:], blocks, side="right")
+    return shard, blocks - bounds[shard]
+
+
+def shard_selection(shard: np.ndarray, local: np.ndarray, n_shards: int,
+                    pad: bool = True
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lower a per-shard split to the per-shard decode geometry:
+
+      loc      (n_shards, S) i32 — shard-local ids, row s holding shard
+               s's selections left-packed; pad slots select local id 0
+      flat_idx i64[n] — position of each input element in the flattened
+               (n_shards * S) shard-major decode output (the assembly
+               gather)
+      valid    bool(n_shards, S) — False on pad slots (verify masks them:
+               a pad row decoded under a shallow bucket's rounds may be
+               garbage, and it is never read)
+
+    S is the max per-shard count, pow2-padded unless `pad=False` (the
+    streaming budget path keeps exact sizes)."""
+    shard = np.asarray(shard, np.int64)
+    local = np.asarray(local, np.int64)
+    counts = np.bincount(shard, minlength=n_shards)
+    S = int(counts.max(initial=1))
+    if pad:
+        S = 1 << max(0, S - 1).bit_length()
+    loc = np.zeros((n_shards, S), np.int32)
+    valid = np.zeros((n_shards, S), bool)
+    order = np.argsort(shard, kind="stable")
+    group_first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos_sorted = np.arange(shard.size) - group_first[shard[order]]
+    loc[shard[order], pos_sorted] = local[order]
+    valid[shard[order], pos_sorted] = True
+    flat_idx = np.empty(shard.size, np.int64)
+    flat_idx[order] = shard[order] * S + pos_sorted
+    return loc, flat_idx, valid
+
+
 def pad_pow2_spans(starts: np.ndarray, lengths: np.ndarray
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Pad a span batch to the next power of two by repeating the last span

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.format import fnv1a64_u64_stride
+from repro_torch.launch.mesh import shard_slices
 from repro_torch.training.convert import TORCH_TO_NP, tensor_to_numpy
 
 
@@ -118,11 +119,19 @@ class Checkpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, device="cuda") -> Dict:
+    def restore(self, step: Optional[int] = None, device="cuda",
+                shardings: Optional[Dict] = None) -> Dict:
         """The state saved at `step` (default the latest) as tensors on
         `device`, plus its manifest under `"_manifest"`. A compressed
         payload decodes on `device` (`Decoder.decode_all`); every tensor's
-        digest is checked before it is trusted."""
+        digest is checked before it is trusted.
+
+        `shardings` maps flat tensor paths ("params.w") to `(mesh, spec)`
+        pairs: such a path restores as a list, one tensor a mesh device
+        (in `mesh.devices.flat` order) holding the slice a JAX
+        `NamedSharding(mesh, PartitionSpec(*spec))` would place there
+        (`launch.mesh.shard_slices`). Paths with no entry restore whole
+        on `device`."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -144,7 +153,15 @@ class Checkpointer:
             raw = payload[meta["offset"]:meta["offset"] + meta["nbytes"]]
             if f"{fnv1a64_u64_stride(raw):016x}" != meta["fnv"]:
                 raise AssertionError(f"digest mismatch restoring {k}")
-            flat[k] = _from_raw(raw, meta["dtype"], meta["shape"], device)
+            if shardings is not None and k in shardings:
+                mesh, spec = shardings[k]
+                whole = _from_raw(raw, meta["dtype"], meta["shape"], "cpu")
+                flat[k] = [whole[sl].to(dev).clone() for sl, dev in zip(
+                    shard_slices(mesh, spec, meta["shape"]),
+                    mesh.devices.flat)]
+            else:
+                flat[k] = _from_raw(raw, meta["dtype"], meta["shape"],
+                                    device)
         state = _unflatten(flat)
         state["_manifest"] = manifest
         return state

@@ -91,7 +91,8 @@ class DeviceArchive:
     """The compressed archive resident in device memory plus its static
     decode geometry (python ints)."""
     words: torch.Tensor         # i16[W] — the u16 word buffer's bits
-    word_off: torch.Tensor      # i64[n_blocks, 4]
+    word_off: torch.Tensor      # i64[n_blocks, 4] (i32 in a shard of a
+                                # `ShardPartition`: rebased, < 2^31)
     n_syms: torch.Tensor        # i32[n_blocks, 4]
     lanes: torch.Tensor         # i32[n_blocks, 4]
     n_cmds: torch.Tensor        # i32[n_blocks]
@@ -183,8 +184,9 @@ def to_device(a: Archive, device="cuda") -> DeviceArchive:
 # ------------------------------------------------------------ stream extract
 def _rans_inputs(da: DeviceArchive, sel: torch.Tensor) -> dict:
     """Arguments of the rANS kernel for the 4 streams of each selected
-    block: the selection's (B, 4) stream tables."""
-    return dict(words=da.words, word_off=da.word_off[sel],
+    block: the selection's (B, 4) stream tables (a shard's rebased i32
+    offsets widen to the kernel's i64 here)."""
+    return dict(words=da.words, word_off=da.word_off[sel].long(),
                 n_syms=da.n_syms[sel], lanes=da.lanes[sel], tables=da.tables,
                 layout=da.layout)
 
@@ -440,6 +442,9 @@ class Decoder:
         # fault-injection hook: called once at the top of every decode
         # call when armed (repro_torch.resilience.faults.FaultInjector)
         self.fault_hook = None
+        # {device: DeviceArchive} copies of `da` for the replicated
+        # sharded regime (`core.sharded_decode.replicate_archive`)
+        self.replicas: dict = {}
 
     def _api_store(self):
         """Store-shaped adapter over this decoder so the host APIs ride the
@@ -540,8 +545,11 @@ class Decoder:
         return info
 
     def heal_blocks(self, bad) -> np.ndarray:
-        """Parity-reconstruct the payloads of `bad` on the device."""
+        """Parity-reconstruct the payloads of `bad` on the device (the
+        replicas of the sharded regime are dropped, to be copied again
+        from the healed words)."""
         from repro_torch.resilience.parity import reconstruct_blocks
+        self.replicas.clear()
         return reconstruct_blocks(self, bad)
 
     def _verify_or_recover(self, sel: np.ndarray, rows: torch.Tensor,

@@ -20,8 +20,9 @@ pipeline, lowered through the query plane (`QueryPlanner` →
 `DeviceExecutor`). An optional decoded-block cache
 (`repro_torch.api.cache.BlockCache`: a preallocated device buffer +
 CachePlan hit/miss split, pluggable policies) makes hot blocks skip
-re-decode across calls. Mesh-partitioned residency comes with a later
-slice of the port.
+re-decode across calls. `attach_sharded` partitions the compressed
+archive across a device mesh (`ShardedResidency`), each shard holding
+only its block range's payload slice.
 """
 from __future__ import annotations
 
@@ -31,11 +32,21 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.decoder import (Decoder, DeviceArchive, _decode_sel_core,
-                                      _decode_window_core, _pad_pow2)
+from repro_torch.core.decoder import (BlockDigestError, Decoder, DeviceArchive,
+                                      _decode_sel_core, _decode_window_core,
+                                      _pad_pow2)
 from repro_torch.core.format import Archive
 from repro_torch.core.index import ReadIndex, split_starts
 from repro_torch.resilience import check_on_error
+
+
+def _cache_off() -> dict:
+    """The keys of `BlockCache.info()`, all zero: callers read the
+    counters without checking whether a cache is on."""
+    return {"capacity": 0, "resident": 0, "hits": 0, "misses": 0,
+            "evictions": 0, "installs": 0, "coinstalls": 0,
+            "bytes_resident": 0, "buffer_bytes": 0,
+            "decode_launches": 0, "policy": "off"}
 
 
 @dataclasses.dataclass
@@ -173,6 +184,8 @@ class CompressedResidentStore:
             self._starts64 = None
             self._max_len = self._max_span = 1
         self._planner = self._executor = None
+        # mesh-partitioned residency, attached on demand (attach_sharded)
+        self.sharded: Optional["ShardedResidency"] = None
 
     def _api(self):
         """Lazy (planner, executor) pair — repro_torch.api imports this
@@ -191,23 +204,50 @@ class CompressedResidentStore:
             n_blocks=self.decoder.da.n_blocks,
         )
 
+    def _any_cache(self):
+        """The store's cache, else the attached partition's per-shard
+        cache, else None."""
+        if self._cache is not None:
+            return self._cache
+        return self.sharded._cache if self.sharded is not None else None
+
     @property
     def cache_hits(self) -> int:
-        return self._cache.hits if self._cache is not None else 0
+        c = self._any_cache()
+        return c.hits if c is not None else 0
 
     @property
     def cache_misses(self) -> int:
-        return self._cache.misses if self._cache is not None else 0
+        c = self._any_cache()
+        return c.misses if c is not None else 0
 
     def cache_info(self) -> dict:
         if self._cache is None:
-            # the keys of BlockCache.info(), all zero — callers read the
-            # counters without checking whether the cache is on
-            return {"capacity": 0, "resident": 0, "hits": 0, "misses": 0,
-                    "evictions": 0, "installs": 0, "coinstalls": 0,
-                    "bytes_resident": 0, "buffer_bytes": 0,
-                    "decode_launches": 0, "policy": "off"}
+            # when only the mesh-partitioned residency carries a cache,
+            # its per-shard counters are the store's cache accounting
+            if self._any_cache() is not None:
+                return self.sharded.cache_info()
+            return _cache_off()
         return self._cache.info()
+
+    # ------------------------------------------------- sharded residency
+    def attach_sharded(self, mesh, axes: Tuple[str, ...] = ("data",),
+                       cache_blocks: int = 0,
+                       cache_policy: Union[str, object] = "lru",
+                       verify: bool = False,
+                       on_error: str = "raise") -> "ShardedResidency":
+        """Partition the compressed archive across `mesh` and attach the
+        sharded residency plane (idempotent for a matching geometry:
+        repeat calls reuse the partition and its warm per-shard cache)."""
+        sr = self.sharded
+        if (sr is not None and sr.part.mesh == mesh and sr.axes == axes
+                and sr.cache_blocks == int(cache_blocks)
+                and sr.verify == verify and sr.on_error == on_error):
+            return sr
+        self.sharded = ShardedResidency(
+            self, mesh, axes=axes, cache_blocks=cache_blocks,
+            cache_policy=cache_policy, verify=verify, on_error=on_error)
+        return self.sharded
 
     def _rows_for_blocks(self, uniq: np.ndarray, mode2: bool,
                          verify: bool = False,
@@ -341,3 +381,189 @@ class CompressedResidentStore:
         out, _ = executor.run(planner.plan_records(ids_np, record_bytes),
                               mode2=mode2)
         return out
+
+
+class ShardedResidency:
+    """Mesh-partitioned compressed residency for one store.
+
+    Owns the `ShardPartition` (each shard holds only its contiguous block
+    range's payload slice, on its device: compressed residency scales
+    with mesh width) plus, when `cache_blocks > 0`, the per-shard
+    decoded-block cache (`repro_torch.api.cache.ShardedBlockCache`: every
+    shard runs its own hit/miss split against its own slot tensor on its
+    device). `verify=True` digest-checks every per-shard decode
+    shard-locally BEFORE assembly (`BlockDigestError` names the true
+    global block id).
+
+    This is the residency plane `ShardedExecutor` and `StreamingExecutor`
+    ride; shard-aware work composes here and at `CachePlan`, never inside
+    the executors themselves.
+    """
+
+    def __init__(self, store: CompressedResidentStore, mesh,
+                 axes: Tuple[str, ...] = ("data",), cache_blocks: int = 0,
+                 cache_policy: Union[str, object] = "lru",
+                 verify: bool = False, on_error: str = "raise"):
+        from repro_torch.core.sharded_decode import partition_archive
+        self.store = store
+        self.decoder = store.decoder
+        self.axes = tuple(axes)
+        self.verify = verify
+        self.on_error = check_on_error(on_error)
+        # partition rebuilds performed by the recovery path (payload
+        # corruption healed on the flat copy, or a lost shard re-seeded)
+        self.shard_rebuilds = 0
+        self.cache_blocks = int(cache_blocks)
+        self.part = partition_archive(store.decoder, mesh, self.axes)
+        if self.cache_blocks > 0:
+            from repro_torch.api.cache import ShardedBlockCache
+            self._cache = ShardedBlockCache(
+                self.cache_blocks, store.block_size, self.part.n_blocks,
+                self.part, policy=cache_policy,
+                block_rounds=store.decoder.block_rounds,
+                device=store.device)
+        else:
+            self._cache = None
+
+    # ----------------------------------------------------------- accounting
+    def per_shard_bytes(self) -> int:
+        """Device-resident bytes on ONE shard: its compressed payload
+        slice plus its slot tensor of the decoded-block cache."""
+        tot = self.part.per_shard_device_bytes
+        if self._cache is not None:
+            tot += self._cache.per_shard_buffer_bytes
+        return tot
+
+    def device_bytes(self) -> int:
+        """Total device-resident bytes across the mesh (what a serving
+        budget bounds): the sum of every shard's compressed + cache
+        bytes."""
+        return self.part.n_shards * self.per_shard_bytes()
+
+    def cache_info(self) -> dict:
+        return _cache_off() if self._cache is None else self._cache.info()
+
+    # ------------------------------------------------------------- recovery
+    def _quarantine_hit(self, uniq: np.ndarray) -> bool:
+        q = self.decoder.quarantined
+        return bool(q) and bool(
+            np.isin(uniq, np.fromiter(q, np.int64, len(q))).any())
+
+    def _degraded_rows(self, uniq: np.ndarray,
+                       pad: bool = True) -> torch.Tensor:
+        """Partial-failure fallback: serve through the UNPARTITIONED
+        decoder with partial semantics (quarantined blocks read zeros,
+        nothing installs into the sharded cache)."""
+        sel = _pad_pow2(uniq) if pad else uniq
+        return self.decoder.decode_blocks(sel, verify=True,
+                                          on_error="partial",
+                                          pad_groups=pad)[:uniq.size]
+
+    def _heal_and_rebuild(self, uniq: np.ndarray, on_error: str) -> None:
+        """A partitioned decode failed its shard-local digest check.
+        Recovery composes HERE, at the residency layer: heal on the
+        UNPARTITIONED decoder — parity reconstruction patches the flat
+        device words and the host archive, or proves the flat copy was
+        never corrupt (a lost shard) — then re-seed the partition's
+        tensors from the healed host copy, in place, so the per-shard
+        cache and its slot tensors stay valid."""
+        dec = self.decoder
+        try:
+            dec.decode_blocks(_pad_pow2(uniq), verify=True,
+                              on_error=("repair" if on_error == "repair"
+                                        else "partial"))
+        except BlockDigestError:
+            if on_error != "partial":
+                raise
+        self.part.reseed(dec.archive)
+        self.shard_rebuilds += 1
+
+    def _resilient(self, run, uniq: np.ndarray, on_error: str,
+                   pad: bool = True) -> torch.Tensor:
+        """Run a verified partitioned decode with heal-and-rebuild retry
+        (one retry: a second failure means genuinely unrecoverable)."""
+        if on_error == "partial" and self._quarantine_hit(uniq):
+            return self._degraded_rows(uniq, pad=pad)
+        try:
+            return run()
+        except BlockDigestError:
+            if on_error == "raise":
+                raise
+            self._heal_and_rebuild(uniq, on_error)
+            if on_error == "partial" and self._quarantine_hit(uniq):
+                return self._degraded_rows(uniq, pad=pad)
+            return run()
+
+    # ----------------------------------------------------------------- rows
+    def rows_for_blocks(self, uniq: np.ndarray,
+                        on_error: Optional[str] = None) -> torch.Tensor:
+        """(U,) unique global block ids → (U, block_size) rows on the
+        store's device, through the partitioned archive (and the
+        per-shard cache when enabled). Resets the decoder's per-call
+        counters as `decode_blocks` does."""
+        dec = self.decoder
+        dec.launch_rounds_last = []
+        dec.decoded_blocks_last = 0
+        on_error = self.on_error if on_error is None else on_error
+        uniq = np.asarray(uniq, np.int64).reshape(-1)
+        if self._cache is None:
+            run = lambda: self._decode_uncached(uniq)  # noqa: E731
+        else:
+            run = lambda: self._cache.rows_for(  # noqa: E731
+                uniq, self._decode_stacked)
+        if not self.verify or on_error == "raise":
+            return run()
+        return self._resilient(run, uniq, on_error)
+
+    def stream_rows(self, uniq: np.ndarray, verify: bool,
+                    on_error: str) -> torch.Tensor:
+        """Cache-bypassing exact-size decode with the recovery wrapper —
+        the streaming executor's entry point (it never recovers
+        itself)."""
+        uniq = np.asarray(uniq, np.int64).reshape(-1)
+        run = lambda: self._decode_uncached(  # noqa: E731
+            uniq, pad=False, verify=verify)
+        if not verify or on_error == "raise":
+            return run()
+        return self._resilient(run, uniq, on_error, pad=False)
+
+    def _decode_stacked(self, loc: np.ndarray, n_rounds: int,
+                        valid: np.ndarray) -> list:
+        """The per-shard miss decode the sharded cache drives: one decode
+        a shard at this depth bucket's rounds → per-shard rows (None for
+        a shard with no miss in the bucket). Pad slots (`~valid`) may hold
+        garbage under a shallow bucket's rounds — verification masks
+        them; the cache install drops them."""
+        from repro_torch.core.sharded_decode import (_rounds,
+                                                     partitioned_rows,
+                                                     verify_stacked)
+        dec = self.decoder
+        stacked = partitioned_rows(dec, self.part, loc, n_rounds=n_rounds,
+                                   valid=valid)
+        dec.launch_rounds_last.append(_rounds(dec, n_rounds))
+        dec.decoded_blocks_last += int(loc.shape[1])
+        if self.verify:
+            verify_stacked(dec, self.part, stacked, loc, valid=valid)
+        return stacked
+
+    def _decode_uncached(self, uniq: np.ndarray, pad: bool = True,
+                         verify: Optional[bool] = None) -> torch.Tensor:
+        """Cache-bypassing partitioned decode, depth-bucketed: one
+        per-shard decode per scheduled-rounds group (`pad=False` keeps
+        exact per-shard widths — the streaming budget path, which also
+        passes its own `verify` instead of this residency's default)."""
+        from repro_torch.core.sharded_decode import partitioned_decode_blocks
+        dec = self.decoder
+        verify = self.verify if verify is None else verify
+        groups = dec._ra_groups(uniq)
+        if groups is None:
+            return partitioned_decode_blocks(dec, self.part, uniq,
+                                             verify=verify, pad=pad)
+        pieces = [partitioned_decode_blocks(dec, self.part, uniq[idx],
+                                            n_rounds=rounds,
+                                            verify=verify, pad=pad)
+                  for rounds, idx in groups]
+        order = np.concatenate([idx for _, idx in groups])
+        inv = np.empty(order.size, np.int64)
+        inv[order] = np.arange(order.size)
+        return torch.cat(pieces)[torch.from_numpy(inv).to(dec.device)]

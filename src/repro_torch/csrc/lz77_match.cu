@@ -55,6 +55,24 @@
 
 namespace {
 
+// Makes `device` current for a launcher's body and restores the caller's
+// current device when the launcher returns, so a launch on one card
+// leaves the caller's next allocation where it was.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t set(int device) {
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err != cudaSuccess) {
+      prev = -1;
+      return err;
+    }
+    return cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 // Phase clocks, compiled in only with -DLZ77_PHASE_CLOCKS (as
 // scripts/lz77_phase_clocks.py builds it): thread 0 of each CTA adds the SM
 // clock cycles of the prologue, fill, rounds and payout to slots 0-3, each
@@ -440,7 +458,8 @@ extern "C" int lz77_match_scratch(int out_size, int n_cmd_cols,
 //  working arrays in shared memory]
 extern "C" int lz77_match_occupancy(int out_size, int n_cmd_cols, int device,
                                     int* info) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Plan p = make_plan(out_size, n_cmd_cols);
   int ctas = 0;
@@ -463,7 +482,8 @@ extern "C" int lz77_match_launch(const void* const* rows,
                                  int offset_bytes, int rounds,
                                  void* scratch, void* out, int device,
                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Planes pl;
   for (int s = 0; s < 4; ++s) {

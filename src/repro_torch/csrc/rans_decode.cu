@@ -41,6 +41,24 @@
 
 namespace {
 
+// Makes `device` current for a launcher's body and restores the caller's
+// current device when the launcher returns, so a launch on one card
+// leaves the caller's next allocation where it was.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t set(int device) {
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err != cudaSuccess) {
+      prev = -1;
+      return err;
+    }
+    return cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 constexpr int kLanes = 32;          // MAX_LANES == warp size
 constexpr int kClasses = 4;         // N_STREAMS, one segment each
 constexpr int kProbBits = 12;
@@ -181,7 +199,8 @@ extern "C" int rans_decode_launch(const void* words, long long n_words,
                                   void* out, int device, void* stream) {
   if (group < 1 || group > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.set(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Layout lay;
   for (int c = 0; c <= kClasses; ++c) lay.start[c] = seg_start[c];

@@ -1,1 +1,2 @@
-"""Fault tolerance of the training loop (single card)."""
+"""Fault tolerance of the training loop and the elastic restore over a
+mesh."""

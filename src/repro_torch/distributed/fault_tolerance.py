@@ -6,10 +6,9 @@ Pieces:
       failures: on exception, restore the latest checkpoint and continue
       (restart budget bounded, backoff bounded and seeded). Failure
       injection hook for tests.
-  elastic_reshard — restore a checkpoint onto a device; the data-pipeline
-      sampler state replays to the restored step, so the token stream is
-      exactly resumed. Re-sharding over a mesh comes with the multi-GPU
-      slice.
+  elastic_reshard — restore a checkpoint re-sharded for a new mesh (or
+      whole onto one device); the data-pipeline sampler state replays to
+      the restored step, so the token stream is exactly resumed.
 """
 from __future__ import annotations
 
@@ -181,9 +180,11 @@ def run_resilient_training(
     return state
 
 
-def elastic_reshard(ckpt: Checkpointer, device="cuda",
-                    step: Optional[int] = None) -> Dict:
-    """Restore a checkpoint (default the latest) onto `device` — the
-    single-card form of the elastic restart; a restore re-sharded over a
-    mesh comes with the multi-GPU slice."""
-    return ckpt.restore(step=step, device=device)
+def elastic_reshard(ckpt: Checkpointer, shardings: Optional[Dict] = None,
+                    step: Optional[int] = None, device="cuda") -> Dict:
+    """Restore a checkpoint (default the latest) re-sharded for a new mesh
+    — the elastic scale-up/down path. `shardings` is a flat {tensor path:
+    (mesh, spec)} for the new mesh: each such path restores as one slice
+    a mesh device (`Checkpointer.restore`); paths with no entry restore
+    whole on `device`."""
+    return ckpt.restore(step=step, device=device, shardings=shardings)

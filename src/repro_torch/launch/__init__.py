@@ -1,1 +1,2 @@
-"""Launchers: the trainer and its process hygiene."""
+"""Launchers (the trainer and the server), their process hygiene, and
+device meshes with the data-parallel process group."""

@@ -17,9 +17,20 @@ before torch loads.
 
 `--device` defaults to the CUDA card and the launcher refuses to start
 without one; `--device cpu` runs the plain PyTorch versions (reduced
-configs). `--manual-dp` and `--grad-compress` come with a later slice of
-the port and exit with a message naming it.
+configs).
+
+`--manual-dp` trains data-parallel with an explicit all-reduce of loss
+and gradients (`make_manual_dp_step`), int8-compressed with
+`--grad-compress`. Alone it runs a world of one; under torchrun each
+rank takes its rows of every global batch, on card LOCAL_RANK:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --manual-dp \
+        --grad-compress --reduced --archive corpus.acegad
+
+Every rank opens the same archive; rank 0 checkpoints to `--ckpt-dir`,
+rank r > 0 to a `rank<r>` directory below it.
 """
+import contextlib
 import argparse
 import os
 import sys
@@ -32,18 +43,21 @@ hygiene.maybe_reexec_tcmalloc("--tcmalloc" in sys.argv)
 hygiene.apply_process_hygiene()
 
 import torch  # noqa: E402  (after hygiene, deliberately)
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch.api.archive import GenomicArchive  # noqa: E402
 from repro_torch.checkpoint.checkpointer import (CheckpointConfig,  # noqa: E402
                                                  Checkpointer)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.decoder import _not_in_slice, resolve_device  # noqa: E402
+from repro_torch.core.decoder import resolve_device  # noqa: E402
 from repro_torch.data.fastq import make_fastq  # noqa: E402
 from repro_torch.distributed.fault_tolerance import (  # noqa: E402
     run_resilient_training)
+from repro_torch.launch.mesh import dp_group, make_local_mesh  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.training.train_step import (init_train_state,  # noqa: E402
+                                             make_manual_dp_step,
                                              make_train_step,
                                              make_unrolled_train_step)
 
@@ -97,10 +111,10 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default="checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--manual-dp", action="store_true",
-                    help="data parallelism with explicit all-reduce "
-                         "(multi-GPU slice)")
+                    help="data parallelism with explicit all-reduce (a "
+                         "world of one, or torchrun's)")
     ap.add_argument("--grad-compress", action="store_true",
-                    help="int8 gradient all-reduce (multi-GPU slice)")
+                    help="int8 gradient all-reduce (requires --manual-dp)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="device of the archive, the model and the "
@@ -128,12 +142,20 @@ def main(argv=None):
                     help="re-exec with tcmalloc LD_PRELOADed")
     args = ap.parse_args(argv)
 
-    if args.manual_dp or args.grad_compress:
-        raise SystemExit(str(_not_in_slice(
-            "--manual-dp/--grad-compress (data-parallel collectives)",
-            "multi-GPU")))
+    unroll = max(1, args.unroll)
+    if args.manual_dp and unroll > 1:
+        raise SystemExit("--unroll pairs with the per-step train step; "
+                         "drop it for --manual-dp")
     device = resolve_device(args.device)
+    if (args.manual_dp and device.type == "cuda" and device.index is None
+            and "LOCAL_RANK" in os.environ):
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    args.device = device
+    with (dp_group(device) if args.manual_dp else contextlib.nullcontext()):
+        _train(args, device, unroll)
 
+
+def _train(args, device: torch.device, unroll: int) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -151,8 +173,11 @@ def main(argv=None):
     state = init_train_state(
         model, torch.Generator(device=device).manual_seed(0), opt)
     start = 0
-    ck = Checkpointer(CheckpointConfig(
-        directory=os.path.join(args.ckpt_dir, args.arch)))
+    ckpt_dir = os.path.join(args.ckpt_dir, args.arch)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
+    ck = Checkpointer(CheckpointConfig(directory=ckpt_dir))
     if args.resume and ck.latest_step() is not None:
         restored = ck.restore(device=device)
         manifest = restored.pop("_manifest")
@@ -161,13 +186,21 @@ def main(argv=None):
         ds.load_state_dict(manifest["extra"]["loader"])
         print(f"resumed from step {start} (dataset step {ds.step})")
 
-    unroll = max(1, args.unroll)
-    if unroll > 1:
+    make_stream = None
+    if args.manual_dp:
+        mesh = make_local_mesh()
+        inner = make_manual_dp_step(model, opt, mesh, remat=args.remat,
+                                    compress=args.grad_compress)
+        print(f"data-parallel over {mesh.size} rank(s) "
+              f"(grad_compress={args.grad_compress})")
+
+        def step(st, batch):
+            return inner(st, batch, 1)
+    elif unroll > 1:
         step = make_unrolled_train_step(model, opt, remat=args.remat)
         make_stream = lambda: ds.windows(unroll)       # noqa: E731
     else:
         step = make_train_step(model, opt, remat=args.remat)
-        make_stream = None
 
     run_resilient_training(step, state, None, ck, n_steps=args.steps,
                            start_step=start, ckpt_every=args.ckpt_every,

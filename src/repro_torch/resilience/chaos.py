@@ -179,10 +179,30 @@ def scenario_prefetch_crash(data: bytes, seed: int, device) -> None:
     _log("prefetch crash: 1 crash, worker restarted, stream bit-exact")
 
 
-# The reference's shard-loss scenario waits for mesh-partitioned residency
-# (the multi-GPU slice).
+def scenario_shard_loss(data: bytes, seed: int, device) -> None:
+    """Zero a whole shard's device words: the next partitioned decode
+    fails shard-local verification, heals from the intact host copy,
+    re-seeds the partition, and returns bit-perfect rows. The mesh is two
+    shards on `device` (the reference takes up to two devices)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.resilience.faults import FaultInjector
+    mesh = make_mesh((2,), ("data",), [device] * 2)
+    st = _mk(data, "ra", "rans", device)
+    sr = st.attach_sharded(mesh, verify=True, on_error="repair")
+    uniq = np.arange(st.decoder.da.n_blocks, dtype=np.int64)
+    ref = sr.rows_for_blocks(uniq).cpu().numpy()
+    fi = FaultInjector(seed=seed)
+    ev = fi.drop_shard(sr)
+    out = sr.rows_for_blocks(uniq).cpu().numpy()
+    assert np.array_equal(out, ref), "shard-loss recovery NOT bit-perfect"
+    assert sr.shard_rebuilds >= 1
+    _log(f"shard loss: shard {ev['shard']} zeroed "
+         f"(blocks {ev['blocks']}), rebuilds={sr.shard_rebuilds}")
+
+
 SCENARIOS = (scenario_flip_repair, scenario_partial_serving,
-             scenario_transient, scenario_prefetch_crash)
+             scenario_transient, scenario_prefetch_crash,
+             scenario_shard_loss)
 
 
 def smoke_data(n_bytes: int) -> bytes:

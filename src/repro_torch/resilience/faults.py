@@ -122,8 +122,13 @@ class FaultInjector:
     # -- distributed failures ----------------------------------------------
 
     def drop_shard(self, sharded, shard: Optional[int] = None) -> dict:
-        """Zero one shard's device-resident words: needs mesh-partitioned
-        residency, which is not ported yet."""
-        raise NotImplementedError(
-            "FaultInjector.drop_shard is not ported yet: it comes with the "
-            "multi-GPU residency slice of the PyTorch port")
+        """Zero one shard's device-resident words, in place — the device
+        copy of every block on that shard is lost, while the host archive
+        stays intact (the recovery path: heal by decode-from-host, then
+        re-seed the partition). Draws the shard when None."""
+        part = sharded.part
+        s = int(shard if shard is not None
+                else self.rng.integers(0, part.n_shards))
+        part.shards[s].words.zero_()
+        lo, hi = int(part.bounds[s]), int(part.bounds[s + 1])
+        return self._record("drop_shard", shard=s, blocks=[lo, hi])

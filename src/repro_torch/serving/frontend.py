@@ -381,9 +381,19 @@ class ServingFrontend:
     # -------------------------------------------------------------- stats
     def device_bytes(self) -> int:
         """Combined device footprint of every archive: compressed
-        payloads + cache slot buffers (the shared-budget accounting)."""
+        payloads + cache slot buffers (the shared-budget accounting).
+        A mesh-partitioned archive contributes the SUM of its per-shard
+        compressed slices + per-shard cache slots — what the whole mesh
+        holds, not one replica."""
         total = 0
         for ga in self.archives.values():
+            sr = getattr(ga.store, "sharded", None)
+            if sr is not None:
+                # the sharded residency owns both compressed and cache
+                # bytes; cache_info() falls through to its cache, so its
+                # buffer_bytes are not added again
+                total += sr.device_bytes()
+                continue
             total += ga.stats().compressed_device_bytes
             total += ga.cache_info()["buffer_bytes"]
         return total

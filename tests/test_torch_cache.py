@@ -161,8 +161,10 @@ def test_pin_range_and_make_policy(corpus):
     assert pcache.make_policy(p) is p
     with pytest.raises(ValueError, match="positive"):
         pcache.BlockCache(0, BS, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pcache.ShardedBlockCache()
+    # the per-shard cache needs one policy instance a shard, in both
+    for mod in (rcache, pcache):
+        with pytest.raises(TypeError, match="PER shard"):
+            mod.ShardedBlockCache(4, BS, 4, None, policy=mod.LRUPolicy())
 
 
 def test_frequency_sketch_saturates_and_halves():

@@ -590,3 +590,148 @@ def test_tuner_64KiB_ra_blocks_on_the_card(cuda_device, entropy):
     assert rows.reshape(-1)[:len(data)].cpu().numpy().tobytes() == data
     one = card.decode_blocks(np.array([8]))
     assert torch.equal(one.cpu(), rows[8:9].cpu())
+
+
+# ------------------------------------------------- multi-device residency
+def _shard_mesh(device, n=4):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((n,), ("data",), [device] * n)
+
+
+def test_partition_on_the_card_equals_the_cpu(cuda_device):
+    """A 4-shard partition on one card: bounds, per-shard bytes, rows and
+    counters equal to the same partition over four `cpu` shards, through
+    the partitioned decode, the sharded executor with a per-shard cache
+    and sharded streaming; every shard decode launches both kernels."""
+    from repro_torch.api.address import ByteRange
+    from repro_torch.api.executors import ShardedExecutor, StreamingExecutor
+    from repro_torch.core.residency import CompressedResidentStore
+    from repro_torch.core.sharded_decode import (partition_archive,
+                                                 partitioned_decode_blocks)
+    data = make_fastq("platinum", n_reads=2000, seed=61)
+    a = encode(data, block_size=4096)
+    out = {}
+    for name, device in (("card", cuda_device), ("cpu", "cpu")):
+        s = CompressedResidentStore(a, device=device)
+        part = partition_archive(s.decoder, _shard_mesh(device))
+        assert all(sh.device.type == torch.device(device).type
+                   for sh in part.shards)
+        sel = np.random.default_rng(3).permutation(a.n_blocks)[:37]
+        before = dict(ops.LAUNCHES)
+        rows = partitioned_decode_blocks(s.decoder, part, sel, verify=True)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        got = [part.bounds.tolist(), part.per_shard_device_bytes,
+               rows.cpu(), s.decoder.launch_rounds_last,
+               s.decoder.decoded_blocks_last]
+        sx = ShardedExecutor(s, _shard_mesh(device), cache_blocks=16)
+        planner = s._api()[0]
+        bs = a.block_size
+        for rep in range(3):
+            ids = np.random.default_rng(rep % 2).integers(0, a.n_blocks, 24)
+            r, _ = sx.run(planner.plan_spans(ids * bs + 7,
+                                             np.full(ids.size, 100)))
+            got += [r.cpu(), sx.cache_info()]
+        st = StreamingExecutor(s, max_resident_bytes=6 * bs,
+                               sharded=sx.sharded)
+        got.append(np.concatenate(list(st.chunks([ByteRange(0, len(data))]))))
+        got.append([tuple(vars(c).values()) for c in st.chunk_log])
+        out[name] = (got, launched)
+    card, cpu = out["card"][0], out["cpu"][0]
+    assert len(card) == len(cpu)
+    for x, y in zip(card, cpu):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        elif isinstance(x, np.ndarray):
+            assert np.array_equal(x, y)
+        else:
+            assert x == y
+    assert card[-2].tobytes() == data
+    # one launch of each kernel a shard and depth bucket
+    n_buckets = len(card[3])
+    assert out["card"][1] == {"rans_decode": 4 * n_buckets,
+                              "lz77_match": 4 * n_buckets}
+
+
+def test_shard_loss_heals_on_the_card(cuda_device):
+    """`drop_shard` zeroes a shard's words on the card; a verified
+    `rows_for_blocks` under "repair" heals from the host copy, re-seeds
+    the partition in place and returns the source bytes."""
+    from repro_torch.core.residency import CompressedResidentStore
+    from repro_torch.resilience.faults import FaultInjector
+    data = make_fastq("platinum", n_reads=2000, seed=62)
+    a = encode(data, block_size=4096)
+    s = CompressedResidentStore(a, device=cuda_device)
+    sr = s.attach_sharded(_shard_mesh(cuda_device), verify=True,
+                          on_error="repair", cache_blocks=8)
+    uniq = np.arange(a.n_blocks)
+    want = sr.rows_for_blocks(uniq).cpu()
+    assert want.reshape(-1)[:len(data)].numpy().tobytes() == data
+    ev = FaultInjector(seed=18).drop_shard(sr, shard=1)
+    assert ev["shard"] == 1 and not sr.part.shards[1].words.any()
+    words = sr.part.shards[1].words
+    got = sr.rows_for_blocks(uniq).cpu()
+    assert torch.equal(got, want)
+    assert sr.shard_rebuilds == 1
+    assert sr.part.shards[1].words is words and words.any()
+
+
+def test_world_of_one_dp_step_on_the_card_equals_the_plain_step(
+        cuda_device):
+    """An NCCL world of one: the uncompressed data-parallel step is the
+    plain step bit for bit; the compressed step's loss is the plain
+    loss, and `compressed_psum` stays within one quantum."""
+    from repro_torch.launch.mesh import dp_group, make_local_mesh
+    from repro_torch.training import grad_compress as gc
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_manual_dp_step,
+                                                 make_train_step)
+    model = _reduced_lm()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    tokens = (torch.arange(8 * 32, device=cuda_device).reshape(8, 32)
+              % 512).to(torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+
+    def fresh():
+        return init_train_state(
+            model, torch.Generator(device=cuda_device).manual_seed(0), opt,
+            torch.float32)
+
+    plain, pm = make_train_step(model, opt, remat="none")(fresh(), batch)
+    with dp_group(cuda_device):
+        mesh = make_local_mesh()
+        assert mesh.size == 1
+        dp, dm = make_manual_dp_step(model, opt, mesh, remat="none")(
+            fresh(), batch, 0)
+        _, cm = make_manual_dp_step(model, opt, mesh, remat="none",
+                                    compress=True)(fresh(), batch, 0)
+        x = torch.randn(4096, device=cuda_device) * 3
+        got = gc.compressed_psum(x, gc.leaf_generator(1, 0, cuda_device))
+        scale = float(x.abs().max()) / 127
+    assert torch.equal(pm["loss"], dm["loss"])
+    assert torch.equal(pm["loss"], cm["loss"])
+    for k in plain["params"]:
+        assert torch.equal(plain["params"][k], dp["params"][k]), k
+    assert float((got - x).abs().max()) <= scale * 1.01
+
+
+def test_launchers_restore_the_current_device(cuda_device):
+    """Each launcher makes its tensors' card current and restores the
+    caller's current device before it returns."""
+    n = torch.cuda.device_count()
+    data = make_fastq("platinum", n_reads=200, seed=63)
+    a = encode(data, block_size=4096)
+    for d in range(n):
+        dev = torch.device("cuda", d)
+        decoder = dec.Decoder(a, device=dev)
+        torch.cuda.set_device((d + 1) % n)
+        try:
+            before = dict(ops.LAUNCHES)
+            rows = decoder.decode_blocks(np.arange(a.n_blocks))
+            ops.lz77_occupancy(4096, 256, dev)
+            assert torch.cuda.current_device() == (d + 1) % n
+            assert all(ops.LAUNCHES[k] > before[k] for k in before)
+            assert rows.device == dev
+        finally:
+            torch.cuda.set_device(0)
+    assert rows.reshape(-1)[:len(data)].cpu().numpy().tobytes() == data

@@ -239,8 +239,12 @@ def test_launcher_refuses_the_cpu_without_a_card_and_later_slices(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train.main(["--reduced", "--steps", "1"])
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        train.main(["--manual-dp", "--device", "cpu"])
+    # --manual-dp is ported: it refuses the unrolled step as the
+    # reference does, and the card's absence
+    with pytest.raises(SystemExit, match="--unroll"):
+        train.main(["--manual-dp", "--unroll", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train.main(["--manual-dp", "--reduced", "--steps", "1"])
     # --tune-target is ported: it too refuses the card's absence
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train.main(["--tune-target", "seek", "--reduced", "--steps", "1"])

@@ -8,8 +8,9 @@ the port to the reference after each fault: the same decoded bytes, the
 same `FaultInjector.log` (block, word and bit), the same
 `recover_info()`, the same `decoded_blocks_last` / `launch_rounds_last`,
 `cache_info()`, `chunk_log` and `last_corrupt` — and, as the reference's
-own tests do, never silently wrong bytes. The sharded, prefetch and
-training-backoff cases wait for the multi-GPU and training slices."""
+own tests do, never silently wrong bytes. The sharded case
+(`test_sharded_flip_and_shard_loss_recover`) is mirrored in
+`tests/test_torch_sharded.py`, on a mesh of four devices."""
 import dataclasses
 import struct
 
@@ -410,12 +411,36 @@ def test_parity_group_one_is_replication():
 
 
 def test_shard_loss_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        FaultInjector(seed=0).drop_shard(None)
+    """`drop_shard` is ported: one seed draws the same shard in both
+    packages and logs the same event; the port zeroes that shard's words
+    in place and leaves the other shards and the host archive alone."""
+    import types
+    import jax.numpy as jnp
+    from repro_torch.core.sharded_decode import partition_archive
+    from repro_torch.launch.mesh import make_mesh
+    dec = Decoder(encode(DATA, block_size=256), device="cpu")
+    part = partition_archive(dec, make_mesh((4,), ("data",), ["cpu"] * 4))
+    rpart = types.SimpleNamespace(
+        n_shards=4, bounds=part.bounds,
+        arrays={"words": jnp.ones((4, part.w_max), jnp.uint16)})
+    rf, pf = RInjector(seed=5), FaultInjector(seed=5)
+    for _ in range(3):
+        want = rf.drop_shard(types.SimpleNamespace(part=rpart))
+        got = pf.drop_shard(types.SimpleNamespace(part=part))
+        assert got == want
+    assert rf.drop_shard(types.SimpleNamespace(part=rpart), shard=2) == \
+        pf.drop_shard(types.SimpleNamespace(part=part), shard=2)
+    assert pf.log == rf.log
+    dropped = {e["shard"] for e in pf.log}
+    for s, sh in enumerate(part.shards):
+        assert bool(sh.words.any()) == (s not in dropped)
+    zero = np.asarray(rpart.arrays["words"]).any(axis=1)
+    assert [not z for z in zero] == [s in dropped for s in range(4)]
+    assert dec.archive.words.any()
 
 
 def test_chaos_smoke_lane(capsys):
     from repro_torch.resilience import chaos
     assert chaos.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "4/4 scenarios passed" in out
+    assert "5/5 scenarios passed" in out

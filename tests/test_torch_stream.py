@@ -162,8 +162,11 @@ def test_stream_budget_too_small_and_sharded_rejected(fastq_pair):
     for cls, store in ((RStream, rs), (StreamingExecutor, ps)):
         with pytest.raises(ValueError, match="max_resident_bytes"):
             cls(store, max_resident_bytes=BS)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        StreamingExecutor(ps, max_resident_bytes=8 * BS, sharded=object())
+    # sharded streaming is mode-2 only, in both
+    for cls, store in ((RStream, rs), (StreamingExecutor, ps)):
+        with pytest.raises(ValueError, match="mode-2 only"):
+            cls(store, max_resident_bytes=8 * BS, sharded=object(),
+                mode2=False)
 
 
 @pytest.mark.parametrize("mode2", [True, False], ids=["mode2", "mode1"])

@@ -1,6 +1,6 @@
 """The port's training substrate (AdamW, schedule, train steps) against the
 JAX reference on the CPU, mirroring `tests/test_training.py` (its int8
-gradient-compression test waits for the multi-GPU slice).
+gradient-compression test is mirrored in `tests/test_torch_dp.py`).
 
 Tolerances (worst seen on these inputs in brackets; the reference's
 init differs from process to process, since it keys each parameter by
@@ -283,5 +283,10 @@ def test_five_train_steps_match_reference(dtype):
 
 
 def test_data_parallel_step_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_manual_dp_step(None, None, None)
+    """The data-parallel step is ported (`tests/test_torch_dp.py` holds it
+    against the reference); a mesh wider than the process group's world
+    is refused at construction."""
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(ValueError, match="2 data-parallel entries"):
+        make_manual_dp_step(None, None,
+                            make_mesh((2,), ("data",), ["cpu"] * 2))

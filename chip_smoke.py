@@ -25,6 +25,10 @@ Multi-device residency: the 8 GiB store partitioned over a 4-shard mesh
 through `ShardedExecutor`, streamed per shard, cached per shard and
 healed after a lost shard; and data-parallel training of the same model
 in an NCCL world of one, with and without the int8 gradient all-reduce.
+The non-dense model families: qwen3-moe-235b-a22b, xlstm-350m,
+recurrentgemma-2b, whisper-medium and qwen2-vl-2b at their published
+widths, each trained and served from the 8 GiB store, and each held in
+fp32 against the CPU at its smallest full block pattern.
 It checks every decoded and served byte against the source. Each phase
 prints one JSON line; the last line is `{"ok": true, "device": {...}}`.
 Any mismatch or failure exits non-zero; without a CUDA card it exits
@@ -92,6 +96,43 @@ SHARD_CACHE = 2048                # cache slots a shard (8192 in all)
 SHARD_HEAL = 4096                 # blocks read after a shard is lost
 DP_STEPS = 3                      # train_dp: 2-layer steps, DP vs plain,
 DP_FULL_STEPS = 4                 # then full-depth steps each way
+# families: each non-dense config at its published widths from the
+# 8 GiB store, trained (FAMILY_STEPS steps of FAMILY_BATCH records) and
+# served as serve_model is (SERVE_B reads, SERVE_CTX, SERVE_NEW). Depth
+# is cut only where one card cannot hold the weights, gradients and
+# AdamW moments beside the resident corpus (PERF.md §4 has the
+# reckoning); T is the record length less one.
+FAMILIES = {
+    "qwen3-moe-235b-a22b": {"seq": 255, "train_layers": 1,
+                            "serve_layers": 2},
+    "xlstm-350m": {"seq": 256},           # the mLSTM chunk needs T % 128
+    "recurrentgemma-2b": {"seq": 255},
+    "whisper-medium": {"seq": 255, "remat": "full"},  # 1500-frame encoder
+    "qwen2-vl-2b": {"seq": 511},          # 256 image positions + text
+}
+FAMILY_BATCH = 8
+FAMILY_STEPS = 4                  # the first is the warm-up
+# families_plain: the smallest depth holding every block kind of the
+# family (MoE and VLM 2 layers; whisper 2 encoder + 2 decoder layers;
+# RG-LRU one (rec, rec, attn) group + one tail layer; xLSTM one group of
+# 3 mLSTM + 1 sLSTM), fp32 weights on the card and on the CPU, one
+# record; then PLAIN_FAMILY_SERVE["new"] greedy tokens after
+# PLAIN_FAMILY_SERVE["ctx"] context bytes, and the card teacher-forced
+# on the CPU's sequence
+PLAIN_FAMILY_LAYERS = {"moe": 2, "vlm": 2, "whisper": 2, "rglru": 4,
+                       "xlstm": 4}
+PLAIN_FAMILY_SERVE = {"B": 2, "ctx": 4, "new": 5}
+# (fp32; the RG-LRU's sqrt(1 - exp(2·a_log)) cancels as a_log → 0, so
+# one ulp of exp moves it by about 1e-4: its reduced card tests read
+# 4.3e-4 on decode logits, every other family's 5e-6 or less. Every
+# family casts the embedding to bf16 before its lookup, as the reference
+# does, so the embedding's gradient is a bf16 sum, in another order on
+# the card, over every position of a token: the zero padding of a
+# 512-byte record puts about 200 terms in one row. It read 2.4e-2
+# (xLSTM, T=256) and 7.8e-2 (the VLM, T=511) against every other leaf's
+# 5e-5 or less; a wrong gradient reads about 1)
+PLAIN_FAMILY_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad": 1e-2,
+                    "grad_embed": 0.2, "logits": 5e-3}
 SEED = 12
 DEVICE = "cuda"
 # peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
@@ -1415,13 +1456,14 @@ def train_config(n_layers=None):
         cfg, n_layers=n_layers)
 
 
-def _check_tokens(batch, ids, corpus, starts, what: str) -> None:
+def _check_tokens(batch, ids, corpus, starts, what: str,
+                  seq: int = TRAIN_SEQ) -> None:
     """Each row's tokens and labels must be its read's source bytes
-    (tile and local id), cut or zero-padded to TRAIN_SEQ + 1."""
+    (tile and local id), cut or zero-padded to seq + 1."""
     n_reads = starts.size - 1
-    rec = TRAIN_SEQ + 1
-    toks = batch["tokens"].cpu().numpy().reshape(-1, TRAIN_SEQ)
-    labs = batch["labels"].cpu().numpy().reshape(-1, TRAIN_SEQ)
+    rec = seq + 1
+    toks = batch["tokens"].cpu().numpy().reshape(-1, seq)
+    labs = batch["labels"].cpu().numpy().reshape(-1, seq)
     if len(ids) != toks.shape[0]:
         fail(f"{what}: {toks.shape[0]} rows for {len(ids)} ids")
     for i, r in enumerate(ids):
@@ -2432,6 +2474,334 @@ def phase_serve_launcher():
              f"{res.stderr[-1500:]}")
 
 
+def family_config(arch: str, n_layers=None):
+    """`arch` as published, or cut to `n_layers` layers (whisper: that
+    many encoder and decoder layers), widths unchanged."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if n_layers is None:
+        return cfg
+    enc = {"n_enc_layers": n_layers} if cfg.family == "whisper" else {}
+    return dataclasses.replace(cfg, n_layers=n_layers, **enc)
+
+
+def family_inputs(cfg, B: int, seed: int) -> dict:
+    """The inputs a family's batch needs beyond tokens and labels, drawn
+    on the card from a seeded generator: whisper's frames (B, 1500,
+    d_model); the VLM's image embeddings over its first n_img_tokens
+    positions (its M-RoPE ids are the text-only default)."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if cfg.family == "whisper":
+        return {"frames": torch.randn((B, cfg.n_frames, cfg.d_model),
+                                      generator=g, device=DEVICE)}
+    if cfg.family == "vlm":
+        return {"img_embeds": torch.randn(
+            (B, cfg.n_img_tokens, cfg.d_model), generator=g, device=DEVICE)}
+    return {}
+
+
+def _n_params(params) -> int:
+    return sum(v.numel() for v in params.values())
+
+
+def _train_family(arch, spec, ga, corpus, starts, smi):
+    """FAMILY_STEPS train steps of `arch` from the 8 GiB store."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    seq, remat = spec["seq"], spec.get("remat", "none")
+    cfg = family_config(arch, spec.get("train_layers"))
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=FAMILY_STEPS)
+    base = _reset_peak()
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(SEED), opt)
+    n_params = _n_params(state["params"])
+    extra = family_inputs(cfg, FAMILY_BATCH, SEED)
+    ds = ga.dataset(batch_size=FAMILY_BATCH, seq_len=seq,
+                    prefetch=TRAIN_PREFETCH, seed=SEED)
+    step = make_train_step(model, opt, remat=remat)
+    ops.reset_launches()
+    it = iter(ds)
+    losses, step_ms, seen = [], [], []
+    for i in range(FAMILY_STEPS):
+        b = next(it)
+        t0 = time.perf_counter()
+        state, m = step(state, {**b, **extra})
+        losses.append(float(m["loss"]))   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        seen.append((b, ds.sampler.sample(i)))
+    pf = ds.prefetch_stats()
+    ds.close()
+    launches = dict(ops.LAUNCHES)
+    peak = _peak_above(base)
+    for n, (b, ids) in enumerate(seen):
+        _check_tokens(b, ids, corpus, starts, f"{arch} batch {n}", seq)
+    med = float(np.median(step_ms[1:]))
+    out = {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "n_params": n_params, "param_dtype": "bfloat16", "remat": remat,
+           "batch": FAMILY_BATCH, "seq_len": seq,
+           "extra_inputs": sorted(extra), "losses": losses,
+           "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": FAMILY_BATCH * seq / (med / 1e3),
+           "peak_bytes_above_residency": peak,
+           "prefetch": pf, "launches": launches,
+           "nvidia_smi": smi}
+    if not all(np.isfinite(losses)):
+        fail(f"{arch}: a train loss is not finite: {losses}")
+    del state, model, extra, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_family(arch, spec, ga, corpus, starts, smi):
+    """`arch` served by `ServeSession.serve_reads` from the 8 GiB store:
+    a one-token call on SERVE_B warm-up ids, time to first token on
+    SERVE_B fresh ids, then SERVE_NEW tokens with per-step CUDA events
+    (the prime's SERVE_CTX steps and the generated steps apart)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import ServeConfig, ServeSession
+    cfg = family_config(arch, spec.get("serve_layers"))
+    model = build_model(cfg)
+    base = _reset_peak()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 2))
+    sync()
+    init_peak = _peak_above(base)
+    _reset_peak()
+    sess = ServeSession(model, params,
+                        ServeConfig(max_seq=SERVE_CTX + SERVE_NEW,
+                                    max_new_tokens=SERVE_NEW), store=ga)
+    rng = np.random.default_rng(SEED + 2)
+    warm_ids, ids = (rng.integers(0, ga.n_reads, SERVE_B) for _ in range(2))
+    seen, events = [], []
+    generate, decode = sess.generate, sess._decode
+
+    def recording_generate(ctx, n=None):
+        seen.append(ctx)
+        return generate(ctx, n)
+
+    def timed_decode(*a):
+        out = decode(*a)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
+
+    sess.generate, sess._decode = recording_generate, timed_decode
+    ops.reset_launches()
+    sess.serve_reads(warm_ids, SERVE_CTX, 1)
+    t0 = time.perf_counter()
+    first = sess.serve_reads(ids, SERVE_CTX, 1)
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    seen.clear()
+    events.clear()
+    t0 = time.perf_counter()
+    toks = sess.serve_reads(ids, SERVE_CTX, SERVE_NEW)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = _peak_above(base)
+    gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    prime_ms, step_ms = gaps[:SERVE_CTX - 1], gaps[SERVE_CTX - 1:]
+    if len(step_ms) != SERVE_NEW - 1:
+        fail(f"{arch} serve: {len(events)} decode steps timed")
+    _check_contexts(seen[0], ids, corpus, starts, SERVE_CTX, f"{arch} serve")
+    if toks.shape != (SERVE_B, SERVE_NEW) or not (
+            (toks >= 0).all() and (toks < cfg.vocab).all()):
+        fail(f"{arch} serve: tokens {toks.shape} out of range")
+    if not np.array_equal(first[:, 0], toks[:, 0]):
+        fail(f"{arch} serve: the first token differs between calls")
+    cache_bytes = sum(t.numel() * t.element_size() for t in
+                      model.cache_specs(SERVE_B, SERVE_CTX + SERVE_NEW)
+                      .values())
+    med = float(np.median(step_ms))
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "n_params": _n_params(params),
+           "batch": SERVE_B, "ctx_bytes": SERVE_CTX,
+           "new_tokens": SERVE_NEW, "decode_step_ms_median": med,
+           "decode_step_ms": step_ms,
+           "prime_step_ms_median": float(np.median(prime_ms)),
+           "tokens_per_s": SERVE_B / (med / 1e3), "ttft_ms": ttft_ms,
+           "serve_reads_s": wall_s, "cache_bytes": cache_bytes,
+           "init_peak_bytes_above_residency": init_peak,
+           "peak_bytes_above_residency": peak, "launches": launches,
+           "nvidia_smi": smi}
+    del params, sess, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(corpus, index, store, smi):
+    """Each config of FAMILIES at its published widths (depth cut where
+    FAMILIES says), bf16 weights of a seeded init: FAMILY_STEPS train
+    steps from the 8 GiB store through `GenomicArchive.dataset` (the
+    prefetch worker on its own stream; whisper's frames and the VLM's
+    image embeddings drawn on the card from a seed; every batch checked
+    against its reads), then served by `ServeSession.serve_reads` from
+    the same store. Every path must launch both kernels."""
+    from repro_torch.api import GenomicArchive
+    starts = np.asarray(index.starts, np.int64)
+    ga = GenomicArchive(store)
+    paths, results = {}, {}
+    for arch, spec in FAMILIES.items():
+        t0 = time.perf_counter()
+        train = _train_family(arch, spec, ga, corpus, starts, smi)
+        serve = _serve_family(arch, spec, ga, corpus, starts, smi)
+        out = {"phase": "family", "arch": arch, "train": train,
+               "serve": serve, "s": time.perf_counter() - t0}
+        emit(out)
+        paths[f"train:{arch}"] = train["launches"]
+        paths[f"serve:{arch}"] = serve["launches"]
+        results[arch] = out
+    _check_launched(paths)
+    return paths, results
+
+
+def _check_launched(paths) -> None:
+    """Both kernels must have run on every path."""
+    for path, counts in paths.items():
+        for k, n in counts.items():
+            if not n:
+                fail(f"{k} was not launched on the {path} path")
+
+
+def _plain_rel(want, got) -> float:
+    """Relative norm of got - want (fp32 norms: the MoE's expert leaves
+    are 1.6e9 elements, too large to copy to fp64 beside the state)."""
+    den = float(want.norm())
+    return float((got - want).norm()) / den if den else float(got.norm())
+
+
+def _plain_family(arch, ga, corpus, starts):
+    """One family at PLAIN_FAMILY_LAYERS layers, fp32, card against CPU:
+    the loss, gradient norm and every leaf's gradient of one record
+    (with the family's inputs), then `serve_reads` on both from the
+    card's store and the card teacher-forced on the CPU's sequence."""
+    import functools
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import ServeConfig, ServeSession
+    from repro_torch.training.optimizer import global_norm
+    seq = FAMILIES[arch]["seq"]
+    cfg = family_config(arch, PLAIN_FAMILY_LAYERS[get_config(arch).family])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 4),
+                        torch.float32)
+    cpu_params = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    ops.reset_launches()
+    batch = ga.dataset(batch_size=1, seq_len=seq, prefetch=0,
+                       seed=SEED + 4).batch_at(0)
+    batch.update(family_inputs(cfg, 1, SEED + 4))
+    train_launches = dict(ops.LAUNCHES)
+    got = {}
+    for dev, p in ((DEVICE, params), ("cpu", cpu_params)):
+        leaves = {k: v.requires_grad_(True) for k, v in p.items()}
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss = model.loss(leaves, b, remat="none")
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        got[dev] = (loss.item(), float(global_norm(grads)),
+                    time.perf_counter() - t0, grads)
+        for v in p.values():
+            v.requires_grad_(False)
+        del leaves, loss
+    (lc, gc, tc, grc), (lp, gp, tp, grp) = got[DEVICE], got["cpu"]
+    del got
+    # leaf by leaf, each freed as it is read: the MoE's fp32 weights and
+    # gradients take 50 GB of the card at 2 layers
+    leaf_err = {}
+    for k in sorted(grp):
+        leaf_err[k] = _plain_rel(grp[k].to(DEVICE), grc[k])
+        grp[k] = grc[k] = None
+    del grc, grp
+    worst = max((k for k in leaf_err if k != "embed"), key=leaf_err.get)
+    # serving, fp32 weights and an fp32 cache on both
+    B, n_ctx, n_new = (PLAIN_FAMILY_SERVE[k] for k in ("B", "ctx", "new"))
+    model.init_cache = functools.partial(type(model).init_cache, model,
+                                         dtype=torch.float32)
+    ids = np.random.default_rng(SEED + 4).integers(0, ga.n_reads, B)
+    scfg = ServeConfig(max_seq=n_ctx + n_new, max_new_tokens=n_new)
+    toks, ctx = {}, {}
+    ops.reset_launches()
+    for dev, p in ((DEVICE, params), ("cpu", cpu_params)):
+        sess = ServeSession(model, p, scfg, store=ga)
+        generate = sess.generate
+        sess.generate = lambda c, n=None, g=generate, d=dev: (
+            ctx.setdefault(d, c), g(c, n))[1]
+        toks[dev] = sess.serve_reads(ids, n_ctx)
+    serve_launches = dict(ops.LAUNCHES)
+    _check_contexts(ctx["cpu"], ids, corpus, starts, n_ctx,
+                    f"{arch} plain serve")
+    seq_t = torch.cat([ctx["cpu"], torch.from_numpy(toks["cpu"][:, :-1])], 1)
+    want = _teacher_forced(model, cpu_params, seq_t, scfg.max_seq)
+    got_l = _teacher_forced(model, params, seq_t.to(DEVICE), scfg.max_seq)
+    rel = [_plain_rel(w, g) for g, w in zip(got_l, want)]
+    greedy = want[n_ctx - 1:].argmax(-1).T.numpy()
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "dtype": "float32",
+           "batch": 1, "seq_len": seq, "loss_card": lc, "loss_plain": lp,
+           "loss_rel_err": abs(lc - lp) / abs(lp),
+           "grad_norm_card": gc, "grad_norm_plain": gp,
+           "grad_norm_rel_err": abs(gc - gp) / abs(gp),
+           "grad_embed_rel_err": leaf_err["embed"],
+           "grad_leaf_rel_err_max": leaf_err[worst],
+           "grad_leaf_worst": worst, "card_s": tc, "plain_s": tp,
+           "serve_batch": B, "ctx_bytes": n_ctx, "new_tokens": n_new,
+           "logits_rel_err_max": max(rel),
+           "tokens_equal": bool(np.array_equal(toks[DEVICE], toks["cpu"])),
+           "train_launches": train_launches,
+           "serve_launches": serve_launches}
+    emit({"phase": "family_plain", **out})
+    del params, cpu_params, model
+    torch.cuda.empty_cache()
+    bad = [k for k, e in leaf_err.items() if not e <= PLAIN_FAMILY_TOL[
+        "grad_embed" if k == "embed" else "grad"]]
+    if not (out["loss_rel_err"] <= PLAIN_FAMILY_TOL["loss"]
+            and out["grad_norm_rel_err"] <= PLAIN_FAMILY_TOL["grad_norm"]) \
+            or bad:
+        fail(f"families_plain {arch}: the card's loss or gradients are not "
+             f"the plain path's (leaves past the bound: {bad}): {out}")
+    if not np.array_equal(greedy, toks["cpu"]):
+        fail(f"families_plain {arch}: the CPU's tokens are not its greedy "
+             f"ones")
+    if not (out["tokens_equal"]
+            and out["logits_rel_err_max"] <= PLAIN_FAMILY_TOL["logits"]):
+        fail(f"families_plain {arch}: the card's serving is not the plain "
+             f"path's: {out}")
+    return out
+
+
+def phase_families_plain(corpus, index, store):
+    """Card against plain path for every family of FAMILIES (see
+    PLAIN_FAMILY_LAYERS), within PLAIN_FAMILY_TOL."""
+    import torch
+    from repro_torch.api import GenomicArchive
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for fp32 matmuls; the plain check needs it off")
+    starts = np.asarray(index.starts, np.int64)
+    ga = GenomicArchive(store)
+    paths, results = {}, {}
+    for arch in FAMILIES:
+        out = _plain_family(arch, ga, corpus, starts)
+        paths[f"plain_train:{arch}"] = out["train_launches"]
+        paths[f"plain_serve:{arch}"] = out["serve_launches"]
+        results[arch] = out
+    emit({"phase": "families_plain", "tolerance": PLAIN_FAMILY_TOL,
+          "families": sorted(results)})
+    _check_launched(paths)
+    return paths, results
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2466,15 +2836,16 @@ def main() -> None:
     paths["serve_model_plain"], served_plain = phase_serve_model_plain(
         corpus, index, store)
     phase_serve_launcher()
+    fam_paths, families = phase_families(corpus, index, store, smi)
+    plain_paths, fam_plain = phase_families_plain(corpus, index, store)
+    paths.update(fam_paths)
+    paths.update(plain_paths)
     # the paths each kernel runs on, and those it must not
-    runs_on = {"rans_decode": ("decode", "fetch", "global", "stream",
-                               "cache", "heal", "partial", "serve",
-                               "shard", "train", "train_dp", "checkpoint",
-                               "tune", "serve_model", "serve_model_plain"),
-               "lz77_match": ("decode", "fetch", "mode1", "stream",
-                              "cache", "heal", "partial", "serve",
-                              "shard", "train", "train_dp", "checkpoint",
-                              "tune", "serve_model", "serve_model_plain")}
+    both = ("stream", "cache", "heal", "partial", "serve", "shard", "train",
+            "train_dp", "checkpoint", "tune", "serve_model",
+            "serve_model_plain", *fam_paths, *plain_paths)
+    runs_on = {"rans_decode": ("decode", "fetch", "global", *both),
+               "lz77_match": ("decode", "fetch", "mode1", *both)}
     for k, on in runs_on.items():
         for path, counts in paths.items():
             if (path in on) != bool(counts[k]):
@@ -2511,7 +2882,23 @@ def main() -> None:
           "train_dp_int8_step_ms_median":
               dp["full"]["int8"]["step_ms_median"],
           "train_dp_grad_err_over_quantum_max":
-              dp["grad_err_over_quantum_max"]})
+              dp["grad_err_over_quantum_max"],
+          "families": {a: {
+              "train_step_ms_median": r["train"]["step_ms_median"],
+              "train_tokens_per_s": r["train"]["tokens_per_s"],
+              "train_peak_bytes_above_residency":
+                  r["train"]["peak_bytes_above_residency"],
+              "decode_step_ms_median": r["serve"]["decode_step_ms_median"],
+              "serve_tokens_per_s": r["serve"]["tokens_per_s"],
+              "ttft_ms": r["serve"]["ttft_ms"],
+              "serve_peak_bytes_above_residency":
+                  r["serve"]["peak_bytes_above_residency"],
+              "plain_loss_rel_err": fam_plain[a]["loss_rel_err"],
+              "plain_grad_norm_rel_err": fam_plain[a]["grad_norm_rel_err"],
+              "plain_grad_leaf_rel_err_max":
+                  fam_plain[a]["grad_leaf_rel_err_max"],
+              "plain_logits_rel_err_max": fam_plain[a]["logits_rel_err_max"]}
+              for a, r in families.items()}})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

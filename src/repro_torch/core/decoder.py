@@ -55,12 +55,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_in_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice of "
-        f"the PyTorch port")
-
-
 def _pad_pow2(ids: np.ndarray) -> np.ndarray:
     """Pad a request batch to the next power of two; pad slots repeat the
     last element, so they add no unique blocks. Kept from the reference

@@ -1,7 +1,7 @@
-"""Shared model substrate: params-as-flat-dict, norms, RoPE, GQA
-attention (causal / local / decode-with-cache, full and blockwise), MLPs,
-the loss and the KV cache — the part of the JAX package's
-`models/common.py` that the dense training and serving paths need.
+"""Shared model substrate: params-as-flat-dict, norms, RoPE/M-RoPE, GQA
+attention (causal / local / cross / decode-with-cache, full and
+blockwise), MLPs, the loss and the KV cache — the JAX package's
+`models/common.py` without its sharding and dry-run helpers.
 
 Parameters are a FLAT dict {path: tensor}; each model declares
 `param_defs(cfg) -> {path: (shape, logical_axes)}`, the one source of
@@ -23,13 +23,34 @@ from __future__ import annotations
 import functools
 import hashlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 ParamDefs = Dict[str, Tuple[Tuple[int, ...], Tuple[Optional[str], ...]]]
+
+
+def meta(shape, dtype) -> torch.Tensor:
+    """A shape and dtype with no storage: the counterpart of the
+    reference's `jax.ShapeDtypeStruct` in `cache_specs`/`input_specs`."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def subtree(params: Dict, prefix: str) -> Dict:
+    """The leaves under `prefix/`, keyed by the rest of their path."""
+    p = prefix + "/"
+    return {k[len(p):]: v for k, v in params.items() if k.startswith(p)}
+
+
+def unstack(tree: Dict) -> List[Dict]:
+    """A dict of stacked `(N, ...)` leaves → N dicts of `torch.unbind`
+    views. Indexing `w[i]` instead would make each slice's backward
+    allocate a zero tensor of the whole stack."""
+    names = sorted(tree)
+    stacks = [torch.unbind(tree[n], 0) for n in names]
+    return [dict(zip(names, layer)) for layer in zip(*stacks)]
 
 
 # ------------------------------------------------------------------- params
@@ -111,15 +132,33 @@ def _rope_table(head_dim: int, theta: float,
                                        np.float32)).to(device)
 
 
-def apply_rope(x, positions, theta: float):
-    """x (..., S, H, D), positions (..., S) int32."""
-    inv = _rope_table(x.shape[-1], theta, x.device)
-    ang = _f32(positions[..., None]) * inv                      # (..., S, D/2)
+def _rotate(x, ang):
+    """Rotate the two halves of x's last axis by `ang` (..., S, D/2)."""
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(_f32(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x (..., S, H, D), positions (..., S) int32."""
+    inv = _rope_table(x.shape[-1], theta, x.device)
+    return _rotate(x, _f32(positions[..., None]) * inv)         # (..., S, D/2)
+
+
+def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
+    """Qwen2-VL M-RoPE: positions3 (3, ..., S) t/h/w ids; `sections` gives
+    how many rotary frequency pairs each coordinate owns (sums to D/2).
+    Each section's angles are its coordinate times its slice of the
+    frequencies, so t = h = w gives `apply_rope`'s angles bit for bit."""
+    d = x.shape[-1]
+    inv = _rope_table(d, theta, x.device)                        # (D/2,)
+    sec = np.concatenate([[0], np.cumsum(sections)])
+    assert sec[-1] == d // 2, "mrope sections must sum to head_dim/2"
+    ang = torch.cat([_f32(positions3[i][..., None]) * inv[sec[i]:sec[i + 1]]
+                     for i in range(3)], dim=-1)                # (..., S, D/2)
+    return _rotate(x, ang)
 
 
 # ---------------------------------------------------------------- attention
@@ -180,6 +219,11 @@ def gqa_attention(q, k, v, *, causal=True, window: int = 0, q_offset=0,
     probs = torch.softmax(scores, dim=-1)                      # fp32
     out = torch.einsum("bkgqs,bskd->bqkgd", _f32(probs.to(q.dtype)), _f32(v))
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def cross_attention(q, k, v):
+    """Non-causal full cross attention (whisper decoder → encoder)."""
+    return gqa_attention(q, k, v, causal=False, window=0)
 
 
 def gqa_attention_blockwise(q, k, v, *, causal=True, window: int = 0,
@@ -253,16 +297,20 @@ def kv_cache_specs(B: int, S: int, n_kv: int, head_dim: int, n_layers: int,
                    dtype=torch.bfloat16):
     """The cache's shapes and dtypes as meta tensors (no allocation)."""
     kv = (n_layers, B, S, n_kv, head_dim)
-    return {"k": torch.empty(kv, dtype=dtype, device="meta"),
-            "v": torch.empty(kv, dtype=dtype, device="meta"),
-            "pos": torch.empty((B,), dtype=torch.int32, device="meta")}
+    return {"k": meta(kv, dtype), "v": meta(kv, dtype),
+            "pos": meta((B,), torch.int32)}
+
+
+def zeros_like_specs(specs: Dict, device) -> Dict:
+    """A zero tensor on `device` for every meta tensor of `specs`."""
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
+            for k, t in specs.items()}
 
 
 def init_kv_cache(B: int, S: int, n_kv: int, head_dim: int, n_layers: int,
                   dtype=torch.bfloat16, device="cuda"):
-    return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
-            for k, t in kv_cache_specs(B, S, n_kv, head_dim, n_layers,
-                                       dtype).items()}
+    return zeros_like_specs(kv_cache_specs(B, S, n_kv, head_dim, n_layers,
+                                           dtype), device)
 
 
 # the reference's logical axes of the decode cache: the SEQUENCE axis

@@ -1,13 +1,11 @@
-"""Model registry: `--arch <id>` → model object.
+"""Model registry: `--arch <id>` → model object (uniform interface).
 
-The dense family (qwen1.5-32b, yi-6b, qwen2-1.5b, internlm2-1.8b) is
-ported; the MoE, xLSTM, RG-LRU, Whisper and VLM families come with the
-remaining-models slice of the port.
+Every model exposes: param_defs / init / loss / forward / cache_specs /
+cache_axes / init_cache / decode_step / input_specs / input_axes.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.core.decoder import _not_in_slice
 
 
 def build_model(cfg_or_name):
@@ -16,7 +14,19 @@ def build_model(cfg_or_name):
     if cfg.family == "dense":
         from repro_torch.models.transformer import DenseLM
         return DenseLM(cfg)
-    if cfg.family in ("moe", "xlstm", "rglru", "whisper", "vlm"):
-        raise _not_in_slice(f"the {cfg.family!r} model family ({cfg.name})",
-                            "remaining-models")
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoELM
+        return MoELM(cfg)
+    if cfg.family == "xlstm":
+        from repro_torch.models.xlstm import XLSTM
+        return XLSTM(cfg)
+    if cfg.family == "rglru":
+        from repro_torch.models.rglru import RecurrentGemma
+        return RecurrentGemma(cfg)
+    if cfg.family == "whisper":
+        from repro_torch.models.whisper import Whisper
+        return Whisper(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VLM
+        return VLM(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,4 +1,5 @@
-"""Dense GQA transformer LM (qwen/yi/internlm families).
+"""Dense GQA transformer LM (qwen/yi/internlm families; backbone for the
+VLM and the attention half of the MoE models).
 
 Functional over a flat parameter dict with the reference's path keys
 (`"layers/wq"`, …) and stacked `(L, …)` layer weights, so a checkpoint
@@ -19,6 +20,11 @@ Serving: `decode_step` runs one token a sequence against a KV cache
 (B,) position). It writes the cache in place, at a slot clamped into
 [0, S-1] on the device as the reference's `dynamic_update_slice` clamps
 it, so a step never waits for the device.
+
+`mrope` (3, B, S) t/h/w position ids replace RoPE by M-RoPE, and
+`img_embeds` (B, n_img, E) overwrite the embeddings of positions
+[0, n_img): the VLM's inputs (`models/vlm.py`). `input_specs` and
+`input_axes` give a shape's inputs as meta tensors and logical axes.
 """
 from __future__ import annotations
 
@@ -30,11 +36,16 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.decoder import _not_in_slice, resolve_device
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.decoder import resolve_device
 from repro_torch.models import common as cm
 
 REMAT_POLICIES = ("none", "full", "dots")
+
+
+def check_remat(remat: str) -> None:
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
 
 
 class DenseLM(nn.Module):
@@ -71,7 +82,7 @@ class DenseLM(nn.Module):
         return cm.init_params(self.param_defs(), generator, dtype)
 
     # ------------------------------------------------------------ sublayers
-    def _qkv(self, lp, h, positions):
+    def _qkv(self, lp, h, positions, mrope=None):
         c = self.cfg
         B, S, _ = h.shape
         q = cm._mm(h, lp["wq"])
@@ -84,17 +95,21 @@ class DenseLM(nn.Module):
         q = q.reshape(B, S, c.n_heads, c.head_dim)
         k = k.reshape(B, S, c.n_kv_heads, c.head_dim)
         v = v.reshape(B, S, c.n_kv_heads, c.head_dim)
-        q = cm.apply_rope(q, positions, c.rope_theta)
-        k = cm.apply_rope(k, positions, c.rope_theta)
+        if mrope is not None:
+            q = cm.apply_mrope(q, mrope, c.rope_theta, c.mrope_sections)
+            k = cm.apply_mrope(k, mrope, c.rope_theta, c.mrope_sections)
+        else:
+            q = cm.apply_rope(q, positions, c.rope_theta)
+            k = cm.apply_rope(k, positions, c.rope_theta)
         return q, k, v
 
     def _mlp(self, lp, h):
         return cm.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
-    def _block(self, lp, h, positions, window: int = 0):
+    def _block(self, lp, h, positions, mrope=None, window: int = 0):
         c = self.cfg
         hn = cm.rms_norm(h, lp["attn_norm"], c.norm_eps)
-        q, k, v = self._qkv(lp, hn, positions)
+        q, k, v = self._qkv(lp, hn, positions, mrope)
         att = cm.gqa_attention(q, k, v, causal=True, window=window)
         att = att.reshape(h.shape[0], h.shape[1], c.q_dim)
         h = h + cm._mm(att, lp["wo"])
@@ -103,29 +118,29 @@ class DenseLM(nn.Module):
 
     def _layers(self, params: Dict):
         """Per-layer weight dicts: `torch.unbind` views of the stacks."""
-        names = sorted(k.split("/", 1)[1] for k in params
-                       if k.startswith("layers/"))
-        stacks = [torch.unbind(params[f"layers/{n}"], 0) for n in names]
-        return [dict(zip(names, layer)) for layer in zip(*stacks)]
+        return cm.unstack(cm.subtree(params, "layers"))
 
     # -------------------------------------------------------------- forward
     def forward(self, params: Dict, tokens, mrope=None, img_embeds=None,
                 remat: str = "full", collect_kv: bool = False):
-        if mrope is not None or img_embeds is not None:
-            raise _not_in_slice("DenseLM mrope/img_embeds (the VLM)",
-                                "remaining-models")
-        if remat not in REMAT_POLICIES:
-            raise ValueError(f"unknown remat policy {remat!r}")
+        check_remat(remat)
         c = self.cfg
         B, S = tokens.shape
         h = torch.nn.functional.embedding(
             tokens, params["embed"].to(torch.bfloat16))
+        if img_embeds is not None:
+            # the reference's dynamic_update_slice at (0, 0, 0)
+            n = img_embeds.shape[1]
+            if n > S:
+                raise ValueError(f"{n} image embeddings do not fit in a "
+                                 f"sequence of {S}")
+            h = torch.cat([img_embeds.to(h.dtype), h[:, n:]], dim=1)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :]
         ks, vs = [], []
         for lp in self._layers(params):
             h, (k, v) = _run_layer(functools.partial(
-                self._block, lp, positions=positions), h, remat)
+                self._block, lp, positions=positions, mrope=mrope), h, remat)
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
@@ -161,8 +176,6 @@ class DenseLM(nn.Module):
         """One token per sequence: tokens (B, 1) → logits (B, vocab).
         Writes the new keys and values into `cache` in place and returns
         it with `pos` advanced by one."""
-        if mrope is not None:
-            raise _not_in_slice("DenseLM mrope (the VLM)", "remaining-models")
         c = self.cfg
         B = tokens.shape[0]
         h = torch.nn.functional.embedding(
@@ -177,7 +190,7 @@ class DenseLM(nn.Module):
         for i, lp in enumerate(self._layers(params)):
             k_cache, v_cache = cache["k"][i], cache["v"][i]
             hn = cm.rms_norm(h, lp["attn_norm"], c.norm_eps)
-            q, k, v = self._qkv(lp, hn, positions)
+            q, k, v = self._qkv(lp, hn, positions, mrope)
             # keys cached post-rope → ring/linear layout agnostic
             k_cache.index_copy_(1, slot, k)
             v_cache.index_copy_(1, slot, v)
@@ -191,6 +204,34 @@ class DenseLM(nn.Module):
         logits = cm._mm(h, params["unembed"])[:, 0]
         cache["pos"] = kv_len
         return logits, cache
+
+    # -------------------------------------------------------------- dry-run
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """The inputs of `shape` as meta tensors."""
+        return token_specs(shape)
+
+    def input_axes(self, shape: ShapeConfig) -> Dict:
+        return token_axes(shape, self.input_specs(shape))
+
+
+def token_specs(shape: ShapeConfig) -> Dict:
+    """Token (and label) inputs of a train, prefill or decode shape."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = cm.meta((B, S), torch.int32)
+    if shape.kind == "train":
+        return {"tokens": tok, "labels": tok}
+    if shape.kind == "prefill":
+        return {"tokens": tok}
+    return {"tokens": cm.meta((B, 1), torch.int32)}
+
+
+def token_axes(shape: ShapeConfig, specs: Dict, **extra) -> Dict:
+    """Logical axes of the inputs in `specs`: tokens and labels, and the
+    `extra` inputs a family adds."""
+    ax = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"), **extra}
+    if shape.kind == "decode":
+        ax["tokens"] = ("batch", None)
+    return {k: v for k, v in ax.items() if k in specs}
 
 
 def _save_dots(ctx, op, *args, **kwargs):

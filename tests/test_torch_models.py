@@ -68,9 +68,17 @@ def test_configs_equal_the_reference():
 
 
 def test_registry_builds_dense_and_names_the_slice_of_the_rest():
+    """Every config builds, as the reference's class, with the
+    reference's parameter shapes."""
     assert p_build("qwen2-1.5b").cfg.n_layers == 28
-    with pytest.raises(NotImplementedError, match="remaining-models"):
-        p_build("xlstm-350m")
+    for name in ALL_ARCHS:
+        pm, rm = p_build(name), r_build(r_get_config(name))
+        assert type(pm).__name__ == type(rm).__name__, name
+        assert pm.param_defs() == rm.param_defs(), name
+    with pytest.raises(ValueError, match="unknown family"):
+        import dataclasses
+        p_build(dataclasses.replace(p_get_config("qwen2-1.5b"),
+                                    family="rnn"))
 
 
 # ------------------------------------------------------ per function
@@ -287,13 +295,15 @@ def test_init_is_stable_and_follows_the_reference_distributions(models):
 
 def test_serving_parts_name_their_slice(models):
     """The KV cache and decode step are ported (held against the
-    reference in test_torch_serve_model.py); the VLM's inputs still name
-    their slice."""
+    reference in test_torch_serve_model.py), and so are the VLM's inputs:
+    `mrope` ids with t = h = w give the RoPE forward bit for bit."""
     _, pm = models
     params = pm.init(torch.Generator().manual_seed(1))
     logits, cache = pm.decode_step(params, pm.init_cache(1, 4, device="cpu"),
                                    torch.zeros((1, 1), dtype=torch.int32))
     assert logits.shape == (1, pm.cfg.vocab) and int(cache["pos"][0]) == 1
-    with pytest.raises(NotImplementedError, match="remaining-models"):
-        pm.forward({}, torch.zeros((1, 2), dtype=torch.int32),
-                   mrope=torch.zeros(1))
+    toks = torch.arange(6, dtype=torch.int32)[None]
+    ids = torch.arange(6, dtype=torch.int32)[None, None].expand(3, 1, 6)
+    with torch.no_grad():
+        assert torch.equal(pm.forward(params, toks, mrope=ids, remat="none"),
+                           pm.forward(params, toks, remat="none"))

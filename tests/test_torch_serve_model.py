@@ -293,12 +293,19 @@ def test_decode_write_clamps_at_the_cache_end(models, weights):
 
 
 def test_decode_step_mrope_names_its_slice(models, weights):
+    """`decode_step` takes M-RoPE ids: ids of t = h = w equal to the
+    cache's position give the RoPE step bit for bit."""
     _, pm = models
-    with pytest.raises(NotImplementedError, match="remaining-models"):
-        pm.decode_step(weights["float32"][1],
-                       pm.init_cache(2, 4, device="cpu"),
-                       torch.zeros((2, 1), dtype=torch.int32),
-                       mrope=torch.zeros(1))
+    params = weights["float32"][1]
+    caches = [pm.init_cache(2, 4, dtype=torch.float32, device="cpu")
+              for _ in range(2)]
+    for t in range(3):
+        tok = torch.from_numpy(TOKENS[:, t:t + 1])
+        ids = caches[0]["pos"][None, :, None].expand(3, 2, 1)
+        with torch.no_grad():
+            a, caches[0] = pm.decode_step(params, caches[0], tok, mrope=ids)
+            b, caches[1] = pm.decode_step(params, caches[1], tok)
+        assert torch.equal(a, b), t
 
 
 # ------------------------------------------------------- ServeSession

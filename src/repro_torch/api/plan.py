@@ -168,9 +168,26 @@ class DecodePlan:
     def batch(self) -> int:
         return int(self.starts.size)
 
+    @property
+    def u_cap(self) -> int:
+        """Bound on the covering set's size: `max_span` blocks a span,
+        at most the archive's blocks."""
+        return min(self.batch * self.max_span, self.n_blocks)
+
     def geom(self) -> tuple:
-        """(block_size, n_blocks, max_len, max_span)."""
+        """(block_size, n_blocks, max_len, max_span). The reference's
+        tuple adds `u_cap`, the static width of its jitted covering set;
+        the port's fetch core sizes that set on the device and unpacks
+        these four."""
         return (self.block_size, self.n_blocks, self.max_len, self.max_span)
+
+    @property
+    def total_payload_bytes(self) -> int:
+        return int(self.lengths[:self.n_queries].sum())
+
+    @property
+    def padded_output_bytes(self) -> int:
+        return self.batch * self.max_len
 
     # ----------------------------------------------------------- host cover
     def host_spans(self) -> tuple:
@@ -189,6 +206,11 @@ class DecodePlan:
             row_map = np.searchsorted(uniq, cover).astype(np.int32)
             self._cover = (b0, r0, end_blk, uniq, row_map)
         return self._cover
+
+    def n_cover_blocks(self) -> int:
+        """Unique covering blocks of this plan: the decode-work unit the
+        serving frontend's service-time estimator prices dispatches in."""
+        return int(self.host_cover()[3].size)
 
     def anchor_windows(self, anchors: np.ndarray) -> list:
         """This plan's covering set grouped by governing anchor window:
@@ -213,6 +235,13 @@ class DecodePlan:
         _, _, _, uniq, _ = self.host_cover()
         r = self.block_rounds[uniq]
         return [(int(v), np.flatnonzero(r == v)) for v in np.unique(r)]
+
+    # ---------------------------------------------------------- shard split
+    def shard_cover(self, bounds: np.ndarray) -> tuple:
+        """(shard, local) split of this plan's unique covering set under
+        the contiguous block partition `bounds`."""
+        _, _, _, uniq, _ = self.host_cover()
+        return split_shards(uniq, bounds)
 
     def needed_rounds(self) -> Optional[int]:
         """Max scheduled rounds over the covering set — strictly below

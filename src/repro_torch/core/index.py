@@ -4,11 +4,12 @@ ReadIndex   — 8 bytes/read: the absolute output byte where the read starts
               (block id + in-block offset fall out arithmetically, and the
               read's extent is delimited by the next entry). This is the
               compact read→block index the paper sizes against `.fai`.
+FaiIndex    — the `.fai`-style FASTQ index it is sized against.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -123,3 +124,39 @@ class ReadIndex:
         starts = (np.arange(n_records + 1, dtype=np.uint64)
                   * np.uint64(record_bytes))
         return cls(starts=starts, block_size=block_size)
+
+
+@dataclasses.dataclass
+class FaiIndex:
+    """`.fai`-style FASTQ index (the baseline the paper compares against):
+    one text line a read, name then (length, sequence offset, bases a
+    line, bytes a line, quality offset)."""
+    text: bytes
+    entries: Dict[bytes, Tuple[int, int, int, int, int]]
+
+    @property
+    def nbytes(self) -> int:
+        return len(self.text)
+
+    def lookup(self, name: bytes):
+        return self.entries[name]
+
+    @classmethod
+    def build(cls, data: bytes) -> "FaiIndex":
+        starts, names = parse_fastq_records(data)
+        lines = []
+        entries = {}
+        for i, name in enumerate(names):
+            s, e = int(starts[i]), int(starts[i + 1])
+            rec = data[s:e]
+            l1 = rec.index(b"\n")
+            seq_off = s + l1 + 1
+            l2 = rec.index(b"\n", l1 + 1)
+            seq_len = l2 - (l1 + 1)
+            l3 = rec.index(b"\n", l2 + 1)
+            qual_off = s + l3 + 1
+            entry = (seq_len, seq_off, seq_len, seq_len + 1, qual_off)
+            entries[name] = entry
+            lines.append(b"\t".join(
+                [name] + [str(x).encode() for x in entry]) + b"\n")
+        return cls(text=b"".join(lines), entries=entries)

@@ -11,6 +11,10 @@ carries a 4-shard partition, and how the CPU tests carry a mesh of N
 `make_local_mesh` spans the world of the process group, one entry a
 rank.
 
+`make_mesh` is also the port's counterpart of the reference's
+`compat.make_mesh`, and `make_production_mesh` builds the reference's
+256- and 512-card meshes for the dry-run (`launch/dryrun.py`).
+
 Functions, not module-level constants: importing this module touches no
 device and no process group.
 """
@@ -26,6 +30,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import mesh_context  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -89,6 +95,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return Mesh(devices=arr.reshape(shape), axis_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes: 16×16 = 256 cards as
+    ("data", "model"), or 2 of them (512) as ("pod", "data", "model").
+    Every entry is the meta device: the dry-run (`launch/dryrun.py`)
+    traces on meta tensors in a fake world of that many ranks, and no
+    card is touched."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, ["meta"] * int(np.prod(shape)))
 
 
 def make_local_mesh(model_parallel: int = 1) -> Mesh:

@@ -1,11 +1,13 @@
 """Shared model substrate: params-as-flat-dict, norms, RoPE/M-RoPE, GQA
 attention (causal / local / cross / decode-with-cache, full and
-blockwise), MLPs, the loss and the KV cache — the JAX package's
-`models/common.py` without its sharding and dry-run helpers.
+blockwise), MLPs, the loss and the KV cache, as the JAX package's
+`models/common.py` has them (its `scan_layers` switch excepted: the port
+walks layers in Python loops).
 
 Parameters are a FLAT dict {path: tensor}; each model declares
 `param_defs(cfg) -> {path: (shape, logical_axes)}`, the one source of
-truth for init and for the checkpoint's tensor names.
+truth for init, for the checkpoint's tensor names, and for the dry-run's
+meta tensors (`param_structs`) and specs (`param_specs`).
 
 Dtype flow is the reference's: norms, RoPE and the softmax compute in
 fp32 and return their input's dtype; the attention score and PV products
@@ -28,6 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import spec_for
 
 ParamDefs = Dict[str, Tuple[Tuple[int, ...], Tuple[Optional[str], ...]]]
 
@@ -87,6 +91,16 @@ def init_params(defs: ParamDefs, generator: torch.Generator,
                                device=dev) * std).to(dtype)
         out[path] = val
     return out
+
+
+def param_structs(defs: ParamDefs, dtype=torch.bfloat16) -> Dict:
+    """Meta tensors (no allocation) — the dry-run's params."""
+    return {p: meta(s, dtype) for p, (s, _) in defs.items()}
+
+
+def param_specs(defs: ParamDefs, rules=None) -> Dict:
+    """{path: spec} from logical axes."""
+    return {p: spec_for(a, rules) for p, (s, a) in defs.items()}
 
 
 # ------------------------------------------------------------------ products

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import DenseLM
 
@@ -110,9 +111,9 @@ class MoELM(DenseLM):
         return defs
 
     def _mlp(self, lp, h):
-        return moe_ffn(h, lp["router"], lp["moe_gate"], lp["moe_up"],
-                       lp["moe_down"], self.cfg.top_k,
-                       self.cfg.capacity_factor)
+        y = moe_ffn(h, lp["router"], lp["moe_gate"], lp["moe_up"],
+                    lp["moe_down"], self.cfg.top_k, self.cfg.capacity_factor)
+        return shard(y, ("batch", "seq", "embed_act"))
 
     def active_params_per_token(self) -> int:
         """N_active for MODEL_FLOPS = 6·N_active·D (roofline)."""

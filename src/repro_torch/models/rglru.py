@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.decoder import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (_run_layer, check_remat,
                                             token_axes, token_specs)
@@ -179,8 +180,16 @@ class RecurrentGemma(nn.Module):
         q = cm.apply_rope(q, positions, c.rope_theta)
         k = cm.apply_rope(k, positions, c.rope_theta)
         if k_cache is None:
+            # the reference's sequence-parallel local attention (no-ops
+            # off a mesh)
+            if S > 1:
+                q = shard(q, ("batch", "kv_seq", None, None))
+                k = shard(k, ("batch", None, None, None))
+                v = shard(v, ("batch", None, None, None))
             att = cm.gqa_attention(q, k, v, causal=True,
                                    window=c.local_window)
+            if S > 1:
+                att = shard(att, ("batch", "kv_seq", None, None))
         else:
             # the ring: slot pos mod W, written in place on the device
             W = k_cache.shape[1]
@@ -198,7 +207,8 @@ class RecurrentGemma(nn.Module):
     def _group(self, rp_g, ap, positions, h):
         for rp in cm.unstack(rp_g):
             h = self._rec_block(rp, h)[0]
-        return self._attn_block(ap, h, positions)
+        return shard(self._attn_block(ap, h, positions),
+                     ("batch", "seq", "embed_act"))
 
     # -------------------------------------------------------------- forward
     def forward(self, params: Dict, tokens, remat: str = "full"):
@@ -206,6 +216,7 @@ class RecurrentGemma(nn.Module):
         c = self.cfg
         S = tokens.shape[1]
         h = F.embedding(tokens, params["embed"].to(torch.bfloat16))
+        h = shard(h, ("batch", "seq", "embed_act"))
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :]
         groups = zip(cm.unstack(cm.subtree(params, "rec")),
@@ -216,7 +227,7 @@ class RecurrentGemma(nn.Module):
         for rp in cm.unstack(cm.subtree(params, "tail")):
             h = self._rec_block(rp, h)[0]
         h = cm.rms_norm(h, params["final_norm"], c.norm_eps)
-        return cm._mm(h, params["unembed"])
+        return shard(cm._mm(h, params["unembed"]), ("batch", "seq", "vocab"))
 
     def loss(self, params, batch, remat: str = "full"):
         logits = self.forward(params, batch["tokens"], remat=remat)

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.decoder import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -101,6 +102,12 @@ class DenseLM(nn.Module):
         else:
             q = cm.apply_rope(q, positions, c.rope_theta)
             k = cm.apply_rope(k, positions, c.rope_theta)
+        # the reference's sequence-parallel attention: q sharded on Sq
+        # over "model", the small GQA k/v replicated (no-ops off a mesh)
+        if S > 1:
+            q = shard(q, ("batch", "kv_seq", None, None))
+        k = shard(k, ("batch", None, None, None))
+        v = shard(v, ("batch", None, None, None))
         return q, k, v
 
     def _mlp(self, lp, h):
@@ -111,10 +118,13 @@ class DenseLM(nn.Module):
         hn = cm.rms_norm(h, lp["attn_norm"], c.norm_eps)
         q, k, v = self._qkv(lp, hn, positions, mrope)
         att = cm.gqa_attention(q, k, v, causal=True, window=window)
+        att = shard(att, ("batch", "kv_seq", None, None))
         att = att.reshape(h.shape[0], h.shape[1], c.q_dim)
         h = h + cm._mm(att, lp["wo"])
+        h = shard(h, ("batch", "seq", "embed_act"))
         hn = cm.rms_norm(h, lp["mlp_norm"], c.norm_eps)
-        return h + self._mlp(lp, hn), (k, v)
+        return shard(h + self._mlp(lp, hn), ("batch", "seq", "embed_act")), \
+            (k, v)
 
     def _layers(self, params: Dict):
         """Per-layer weight dicts: `torch.unbind` views of the stacks."""
@@ -135,6 +145,7 @@ class DenseLM(nn.Module):
                 raise ValueError(f"{n} image embeddings do not fit in a "
                                  f"sequence of {S}")
             h = torch.cat([img_embeds.to(h.dtype), h[:, n:]], dim=1)
+        h = shard(h, ("batch", "seq", "embed_act"))
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :]
         ks, vs = [], []
@@ -145,7 +156,7 @@ class DenseLM(nn.Module):
                 ks.append(k)
                 vs.append(v)
         h = cm.rms_norm(h, params["final_norm"], c.norm_eps)
-        logits = cm._mm(h, params["unembed"])
+        logits = shard(cm._mm(h, params["unembed"]), ("batch", "seq", "vocab"))
         if collect_kv:
             return logits, (torch.stack(ks), torch.stack(vs))
         return logits

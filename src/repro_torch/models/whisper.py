@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.decoder import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (_run_layer, check_remat,
                                             token_axes, token_specs)
@@ -135,6 +136,7 @@ class Whisper(nn.Module):
         h = (frames.to(torch.bfloat16)
              + sinusoid_pos(S, E, device=frames.device)[None]
              .to(torch.bfloat16))
+        h = shard(h, ("batch", "frames", "embed_act"))
         for sp, mp in zip(cm.unstack(cm.subtree(params, "enc/self")),
                           cm.unstack(cm.subtree(params, "enc/mlp"))):
             h = _run_layer(functools.partial(self._enc_layer, sp, mp), h,
@@ -149,6 +151,7 @@ class Whisper(nn.Module):
         h = (F.embedding(tokens, params["embed"].to(torch.bfloat16))
              + sinusoid_pos(S, c.d_model, device=tokens.device)[None]
              .to(torch.bfloat16))
+        h = shard(h, ("batch", "seq", "embed_act"))
         for sp, xp, mp in zip(cm.unstack(cm.subtree(params, "dec/self")),
                               cm.unstack(cm.subtree(params, "dec/cross")),
                               cm.unstack(cm.subtree(params, "dec/mlp"))):
@@ -156,7 +159,8 @@ class Whisper(nn.Module):
                                              enc_out), h, remat)
         h = cm.layer_norm(h, params["dec_final_w"], params["dec_final_b"],
                           c.norm_eps)
-        return cm._mm(h, params["embed"].T)                      # tied
+        logits = cm._mm(h, params["embed"].T)                    # tied
+        return shard(logits, ("batch", "seq", "vocab"))
 
     def forward(self, params, tokens, frames=None, remat: str = "full"):
         enc = self.encode(params, frames, remat=remat)

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.decoder import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (_run_layer, check_remat,
                                             token_axes, token_specs)
@@ -221,20 +222,21 @@ class XLSTM(nn.Module):
     def _group(self, mp_g, sp, h):
         for mp in cm.unstack(mp_g):
             h = self._m_block(mp, h)[0]
-        return self._s_block(sp, h)[0]
+        return shard(self._s_block(sp, h)[0], ("batch", "seq", "embed_act"))
 
     # -------------------------------------------------------------- forward
     def forward(self, params: Dict, tokens, remat: str = "full"):
         check_remat(remat)
         c = self.cfg
         h = F.embedding(tokens, params["embed"].to(torch.bfloat16))
+        h = shard(h, ("batch", "seq", "embed_act"))
         groups = zip(cm.unstack(cm.subtree(params, "m")),
                      cm.unstack(cm.subtree(params, "s")))
         for mp_g, sp in groups:
             h = _run_layer(functools.partial(self._group, mp_g, sp), h,
                            remat)
         h = cm.rms_norm(h, params["final_norm"], c.norm_eps)
-        return cm._mm(h, params["unembed"])
+        return shard(cm._mm(h, params["unembed"]), ("batch", "seq", "vocab"))
 
     def loss(self, params, batch, remat: str = "full"):
         logits = self.forward(params, batch["tokens"], remat=remat)

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.serving.frontend import Overloaded, ServingFrontend
+from repro_torch.serving.frontend import Overloaded, Result, ServingFrontend  # noqa: F401
 
 
 # ---------------------------------------------------------------- samplers

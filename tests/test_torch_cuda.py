@@ -829,3 +829,73 @@ def test_family_decode_steps_on_the_card_match_the_cpu(cuda_device, arch):
             assert torch.equal(cc[k], cg[k]) and int(cg[k][0]) == 8
         else:
             assert _rel(cc[k], cg[k]) <= 1e-3, k
+
+
+# ------------------------------------------------------------- roofline
+@pytest.mark.parametrize("arch", ("qwen2-1.5b",) + FAMILIES)
+def test_step_counted_on_the_card_equals_the_meta_count(cuda_device, arch):
+    """One reduced bf16 train step and one decode step a family, counted
+    on the card under the dry-run's counting mode: the FLOPs equal those
+    counted on meta tensors of the same shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.roofline.step import count_step, meta_like
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    opt = AdamWConfig()
+    state = init_train_state(
+        model, torch.Generator(device=cuda_device).manual_seed(0), opt)
+    b = _family_batch(cfg, cuda_device)
+    step = make_train_step(model, opt, remat="none")
+    card = count_step(step, state, b, device=cuda_device)
+    meta = count_step(step, *meta_like((state, b)), device="meta")
+    assert card["flops"] == meta["flops"] > 0
+    assert card["bytes"] > 0 and meta["bytes"] > 0
+    cache = model.init_cache(2, 40, device=cuda_device)
+    cur = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+
+    def decode(p, c, t):
+        with torch.no_grad():
+            return model.decode_step(p, c, t)
+
+    card = count_step(decode, state["params"], cache, cur,
+                      device=cuda_device)
+    meta = count_step(decode, *meta_like((state["params"], cache, cur)),
+                      device="meta")
+    assert card["flops"] == meta["flops"] > 0
+
+
+def test_mfu_of_a_timed_step_is_a_share(cuda_device):
+    """A timed full-width qwen2-1.5b train step at 2 layers (B=2, T=255):
+    its MFU and roofline share lie in (0, 1]."""
+    import dataclasses
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.roofline import hlo_costs as rl
+    from repro_torch.roofline.step import count_step, step_roofline
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
+    model = build_model(cfg)
+    opt = AdamWConfig()
+    state = init_train_state(
+        model, torch.Generator(device=cuda_device).manual_seed(0), opt)
+    toks = torch.randint(0, 256, (2, 256), device=cuda_device)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(model, opt, remat="none")
+    state, _ = step(state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, b)
+    float(m["loss"])
+    step_s = time.perf_counter() - t0
+    r = step_roofline(rl.model_flops_train(cfg, 2 * 255),
+                      count_step(step, state, b, device=cuda_device), step_s)
+    print(f"mfu {r['mfu']:.4f} roofline share {r['roofline_share']:.4f} "
+          f"({r['bound_by']})")
+    assert 0 < r["mfu"] <= 1 and 0 < r["roofline_share"] <= 1

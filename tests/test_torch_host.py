@@ -114,6 +114,54 @@ def test_index_matches_reference(fastq_noisy):
             blk.astype(np.int64) * bs + rem, starts.astype(np.int64))
 
 
+@pytest.mark.parametrize("which", ["platinum", "noisy"])
+def test_fai_index_matches_reference(which, fastq_platinum, fastq_noisy):
+    data = {"platinum": fastq_platinum, "noisy": fastq_noisy}[which]
+    pf, rf = pindex.FaiIndex.build(data), rindex.FaiIndex.build(data)
+    assert pf.text == rf.text and pf.entries == rf.entries
+    assert pf.nbytes == rf.nbytes
+    name = next(iter(rf.entries))
+    assert pf.lookup(name) == rf.lookup(name)
+    # the paper's §4.1 claim, as tests/test_index.py holds it
+    idx = pindex.ReadIndex.build(data, 4096)
+    assert pf.nbytes / idx.nbytes > 3.0
+
+
+def test_fai_index_rejects_malformed_records():
+    """tests/test_index.py's malformed-record rejection, on the port."""
+    ok = b"@r0\nACGT\n+\nFFFF\n"
+    with pytest.raises(ValueError, match="record 1.*separator"):
+        pindex.parse_fastq_records(ok + b"@r1\nACGT\nX\nFFFF\n")
+    with pytest.raises(ValueError, match="record 1.*quality"):
+        pindex.parse_fastq_records(ok + b"@r1\nACGT\n+\nFFF\n")
+    with pytest.raises(ValueError, match="record 1.*header"):
+        pindex.parse_fastq_records(ok + b"r1\nACGT\n+\nFFFF\n")
+    with pytest.raises(ValueError, match="separator"):
+        pindex.parse_fastq_records(b"@r0\nACGT\n\nFFFF\n")
+    with pytest.raises(ValueError, match="separator"):
+        pindex.FaiIndex.build(b"@r0\nACGT\nX\nFFFF\n")
+    rec = b"@r0\nACGT\n+r0 extra\nFFFF\n"
+    starts, names = pindex.parse_fastq_records(rec)
+    assert names == [b"r0"] and starts.tolist() == [0, len(rec)]
+
+
+@pytest.mark.parametrize("which", ["platinum", "noisy"])
+def test_fastq_transforms_match_reference(which, fastq_platinum,
+                                          fastq_noisy):
+    from repro.data import fastq as rfq
+    from repro_torch.data import fastq as pfq
+    data = {"platinum": fastq_platinum, "noisy": fastq_noisy}[which]
+    ps, rs = pfq.separate_streams(data), rfq.separate_streams(data)
+    assert ps == rs
+    _, seqs, quals = rs
+    assert pfq.pack_2bit(seqs) == rfq.pack_2bit(seqs)
+    assert pfq.pack_2bit(seqs[:-3]) == rfq.pack_2bit(seqs[:-3])
+    assert pfq.quality_delta(quals) == rfq.quality_delta(quals)
+    for n in (101, 7):
+        assert (pfq.transpose_records(quals, n)
+                == rfq.transpose_records(quals, n))
+
+
 @pytest.mark.parametrize("parity", [0, 3])
 @pytest.mark.parametrize("tiles", [1, 4])
 def test_tiled_archive_equals_encoding_the_tiled_corpus(tiles, parity):

@@ -29,7 +29,7 @@ from repro.models.registry import build_model as r_build
 from repro_torch.configs import get_config as p_get_config, ALL_ARCHS
 from repro_torch.models import common as pcm
 from repro_torch.models.registry import build_model as p_build
-from repro_torch.training.convert import state_from_numpy
+from repro_torch.training.convert import state_from_numpy, tensor_to_numpy
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -227,7 +227,12 @@ def _ref_value_and_grad(rm, params, tokens, labels, unroll):
 def test_dense_lm_loss_logits_and_grads_match(models, batch, dtype):
     rm, pm = models
     tokens, labels = batch
-    rp = rm.init(jax.random.key(0), getattr(jnp, dtype))
+    # the port's seeded init, carried into the reference: the reference's
+    # own init folds Python's per-process salted hash(path) into its keys,
+    # so its weights (and so this test's inputs) would change by process
+    init = pm.init(torch.Generator().manual_seed(0), getattr(torch, dtype))
+    rp = {k: jnp.asarray(tensor_to_numpy(v, bfloat16=jnp.bfloat16))
+          for k, v in init.items()}
     want_loss, want_grads, want_logits = _ref_value_and_grad(
         rm, rp, tokens, labels, unroll=dtype == "float32")
     params = state_from_numpy({k: np.asarray(v) for k, v in rp.items()},

@@ -219,6 +219,38 @@ def test_plan_geometry_matches_reference(gas):
                                                        rp.max_len)
 
 
+@pytest.mark.parametrize("kind", ["read_ids", "records", "spans"])
+def test_plan_members_match_reference(gas, kind):
+    """`u_cap`, `total_payload_bytes`, `padded_output_bytes`,
+    `n_cover_blocks()` and `shard_cover(bounds)` of read-id, record and
+    span plans of one archive equal the reference's; `geom()` is the
+    reference's tuple less its `u_cap`."""
+    rga, pga, _ = gas
+    rng = np.random.default_rng(3)
+    n = pga.n_reads
+    if kind == "read_ids":
+        ids = rng.integers(0, n, 5)
+        pp, rp = pga.planner.plan_read_ids(ids), rga.planner.plan_read_ids(ids)
+    elif kind == "records":
+        ids = rng.integers(0, 40, 3)
+        pp = pga.planner.plan_records(ids, 300)
+        rp = rga.planner.plan_records(ids, 300)
+    else:
+        starts = rng.integers(0, pga.raw_size - 9000, 6)
+        lens = rng.integers(1, 9000, 6)
+        pp = pga.planner.plan_spans(starts, lens)
+        rp = rga.planner.plan_spans(starts, lens)
+    assert (pp.u_cap, pp.total_payload_bytes, pp.padded_output_bytes,
+            pp.n_cover_blocks()) == (rp.u_cap, rp.total_payload_bytes,
+                                     rp.padded_output_bytes,
+                                     rp.n_cover_blocks())
+    assert pp.geom() + (pp.u_cap,) == rp.geom()
+    nb = pp.n_blocks
+    for bounds in (np.array([0, nb]), np.array([0, nb // 3, nb // 2, nb])):
+        for a, b in zip(pp.shard_cover(bounds), rp.shard_cover(bounds)):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("mode2", [True, False], ids=["mode2", "mode1"])
 def test_stream_facade(gas, mode2):
     rga, pga, src = gas

@@ -35,9 +35,16 @@ printed beside its model FLOPs, MFU and roofline share on the H100's
 data-sheet peaks; the train state's bytes on the card are held against
 the dry-run's reckoning; and the dry-run itself
 (`python -m repro_torch.launch.dryrun`, meta tensors over a fake
-256-rank world) runs for qwen2-1.5b on the single-pod mesh.
+256-rank world) runs for qwen2-1.5b on the single-pod mesh, held on
+this machine's own PyTorch to train_4k's FLOPs within 1-2x the model
+FLOPs, its temp below 128 GB, its collective bytes within a band and
+the replicate fallbacks' share of them at most 0.2; from the plain
+families on, the port's four examples (`examples/*_torch.py`) run on
+the card, each in a process of its own, both kernels launched on each.
+Host encodes run in worker processes from the start.
 It checks every decoded and served byte against the source. Each phase
-prints one JSON line; the last line is `{"ok": true, "device": {...}}`.
+prints one JSON line, with `t_s`, the seconds so far; the last line is
+`{"ok": true, "device": {...}}`.
 Any mismatch or failure exits non-zero; without a CUDA card it exits
 non-zero at once.
 """
@@ -143,6 +150,21 @@ PLAIN_FAMILY_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad": 1e-2,
 ROOFLINE_ARCH = "qwen2-1.5b"       # roofline: the dry-run's cells of
 ROOFLINE_MESH = "single"           # this arch on this mesh
 ROOFLINE_TIMEOUT_S = 300
+ROOFLINE_FLOPS_RATIO = (1.0, 2.0)  # train_4k FLOPs x cards / model FLOPs
+ROOFLINE_REPLICATE_SHARE = 0.2     # replicate fallbacks' collective share
+ROOFLINE_TEMP_MAX = 128e9          # train_4k temp_size_in_bytes a card
+# train_4k's collective bytes a card: half the lower and twice the higher
+# of two DTensors' readings (2.11: 3.666e10, 2.13: 1.524e11)
+ROOFLINE_COLLECTIVE_BYTES = (1.8e10, 3.0e11)
+EXAMPLES = {                       # examples/<name>_torch.py at their
+    "quickstart": [],              # own sizes, and the flags the examples
+    "serve_compressed_resident": [],                    # phase passes
+    "train_compressed_resident": [
+        "--ckpt-dir", os.path.join(ROOT, "build", "examples_ckpt")],
+    "elastic_restart": [],
+}
+EXAMPLES_TIMEOUT_S = 300
+ENCODE_TIMEOUT_S = 600             # phase_global's wait for its encodes
 SEED = 12
 DEVICE = "cuda"
 # peak rates of one H100 SXM: HBM bytes/s (published data sheet) and the
@@ -166,7 +188,13 @@ LZ77_KERNEL_OPS_PER_BYTE_ROUND = 6  # load, compare, gather, select, store,
                                     # moved flag
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's carries `t_s`, the smoke's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -375,16 +403,14 @@ def phase_kernels_vs_plain():
     return worst
 
 
-def phase_resident():
-    from repro_torch.core.encoder import encode
+def phase_resident(encodes):
     from repro_torch.core.index import ReadIndex
     from repro_torch.core.residency import CompressedResidentStore
-    from repro_torch.data.tiling import aligned_fastq, tile_archive, tile_index
+    from repro_torch.data.tiling import tile_archive, tile_index
     import torch
     t0 = time.perf_counter()
-    corpus = aligned_fastq(CORPUS_BLOCKS, BLOCK, seed=SEED)
-    a = encode(corpus, block_size=BLOCK)
-    encode_s = time.perf_counter() - t0
+    corpus, a, encode_s = encodes["ra"].get(timeout=ENCODE_TIMEOUT_S)
+    encode_wait_s = time.perf_counter() - t0
     index = ReadIndex.build(corpus, BLOCK)
     tiled = tile_archive(a, TILES)
     store = CompressedResidentStore(
@@ -392,7 +418,7 @@ def phase_resident():
     sync()
     st = store.stats()
     emit({"phase": "resident", "encode_s": encode_s,
-          "corpus_bytes": len(corpus), "tiles": TILES,
+          "encode_wait_s": encode_wait_s, "corpus_bytes": len(corpus), "tiles": TILES,
           "raw_bytes": st.raw_size, "n_blocks": st.n_blocks,
           "n_reads": store.index.n_reads, "words": int(tiled.words.size),
           "compressed_device_bytes": st.compressed_device_bytes,
@@ -684,8 +710,12 @@ def _peak_above(base: int) -> int:
 
 
 def _reset_peak() -> int:
-    """Reset the peak counter; the bytes allocated now are the base."""
+    """Collect garbage (a cycle of an earlier phase's tensors freed inside
+    the window would read as less memory taken), reset the peak counter;
+    the bytes allocated now are the base."""
+    import gc
     import torch
+    gc.collect()
     sync()
     torch.cuda.reset_peak_memory_stats()
     return torch.cuda.memory_allocated()
@@ -731,29 +761,67 @@ def _window_profile(dec, firsts) -> dict:
             "device_launches_per_window": launches / w}
 
 
-def phase_global():
+def _encode(blocks: int, seed: int, **kw):
+    """(source, archive, encode seconds): `blocks` aligned FASTQ blocks
+    encoded with `kw`, in a worker process."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.encoder import encode
+    from repro_torch.data.tiling import aligned_fastq
+    corpus = aligned_fastq(blocks, BLOCK, seed=seed)
+    t0 = time.perf_counter()
+    a = encode(corpus, block_size=BLOCK, **kw)
+    return corpus, a, time.perf_counter() - t0
+
+
+def start_encodes():
+    """Starts the smoke's host encodes in three spawned worker processes
+    (no CUDA state forked), in the order the phases take them, so that
+    they run beside the card's earlier phases: the "ra" corpus of
+    `phase_resident`, then `phase_global`'s anchored archive, its
+    anchor-free ones (FREE_BLOCKS and a quarter of it) and the one
+    across 2^32. Returns (pool, {name: async result})."""
+    import multiprocessing
+    glob_ = {"mode": "global"}
+    jobs = {"ra": (CORPUS_BLOCKS, SEED, {}),
+            "anchored": (GLOBAL_BLOCKS, SEED + 2,
+                         {**glob_, "anchor_interval": ANCHOR}),
+            "free": (FREE_BLOCKS, SEED + 3, glob_),
+            "small": (FREE_BLOCKS // 4, SEED + 5, glob_),
+            "wrap": (WRAP_BLOCKS, SEED + 4,
+                     {**glob_, "anchor_interval": ANCHOR,
+                      "origin": WRAP_ORIGIN})}
+    pool = multiprocessing.get_context("spawn").Pool(3)
+    return pool, {k: pool.apply_async(_encode, (b, sd), kw)
+                  for k, (b, sd, kw) in jobs.items()}
+
+
+def phase_global(pool, encodes):
     """Global (wavefront) archives through the query plane: a 64 MiB
     anchored archive behind `GenomicArchive` (decode_all, windows,
     mixed queries, cache co-install, stream), a 16 MiB anchor-free one
-    and 1 MiB placed across 2^32."""
+    and 1 MiB placed across 2^32, each encoded by `start_encodes` while
+    earlier phases ran."""
     import torch
     from repro_torch.api import ByteRange, GenomicArchive, ReadId, Region
     from repro_torch.api.executors import StreamingExecutor
     from repro_torch.core.decoder import Decoder
-    from repro_torch.core.encoder import encode
-    from repro_torch.core.index import parse_fastq_records
-    from repro_torch.data.tiling import aligned_fastq
+    from repro_torch.core.index import ReadIndex, parse_fastq_records
+    from repro_torch.core.residency import CompressedResidentStore
     from repro_torch.kernels import ops
     rng = np.random.default_rng(SEED + 2)
-    corpus = aligned_fastq(GLOBAL_BLOCKS, BLOCK, seed=SEED + 2)
+    t0 = time.perf_counter()
+    corpus, a, encode_s = encodes["anchored"].get(timeout=ENCODE_TIMEOUT_S)
+    encode_wait_s = time.perf_counter() - t0
     src = np.frombuffer(corpus, np.uint8)
     starts, names = parse_fastq_records(corpus)
-    starts = starts.astype(np.int64)
+    # what GenomicArchive.from_bytes builds around its encode (the tune
+    # phase and the examples drive from_bytes itself)
     t0 = time.perf_counter()
-    ga = GenomicArchive.from_bytes(corpus, block_size=BLOCK, mode="global",
-                                   anchor_interval=ANCHOR,
-                                   cache_blocks=256, device=DEVICE)
+    ga = GenomicArchive(CompressedResidentStore(
+        a, ReadIndex(starts=starts, block_size=a.block_size), device=DEVICE,
+        cache_blocks=256), names=names)
     build_s = time.perf_counter() - t0
+    starts = starts.astype(np.int64)
     d = ga.store.decoder
     a = d.archive
     ops.reset_launches()
@@ -838,7 +906,8 @@ def phase_global():
             c.resident_bytes > budget for c in ex.chunk_log):
         fail("global stream under budget failed")
     profile = _window_profile(d, np.arange(0, 32 * ANCHOR, ANCHOR) + 400)
-    anchored = {"corpus_bytes": len(corpus), "build_s": build_s,
+    anchored = {"corpus_bytes": len(corpus), "encode_s": encode_s,
+                "encode_wait_s": encode_wait_s, "build_s": build_s,
                 "n_blocks": a.n_blocks, "max_depth": a.max_depth,
                 "compressed_device_bytes": ga.stats().compressed_device_bytes,
                 "decode_all_s": decode_all_s,
@@ -849,10 +918,13 @@ def phase_global():
                 "stream_chunks": len(ex.chunk_log), "stream_s": stream_s,
                 "cache_after_coinstall": info1, "window_profile": profile}
     # 16 MiB anchor-free: every decode is the whole prefix
-    corpus = aligned_fastq(FREE_BLOCKS, BLOCK, seed=SEED + 3)
     t0 = time.perf_counter()
-    a = encode(corpus, block_size=BLOCK, mode="global")
-    encode_s = time.perf_counter() - t0
+    corpus, a, encode_s = encodes["free"].get(timeout=ENCODE_TIMEOUT_S)
+    (small, a_small, _), wrapped = (
+        encodes[k].get(timeout=ENCODE_TIMEOUT_S) for k in ("small", "wrap"))
+    encode_wait_s = time.perf_counter() - t0
+    pool.close()
+    pool.join()
     d = Decoder(a, device=DEVICE)
     base = _reset_peak()
     t0 = time.perf_counter()
@@ -869,9 +941,7 @@ def phase_global():
         fail("anchor-free decode_blocks")
     # a quarter-size anchor-free archive: the resolve's peak at two window
     # sizes gives its bytes per window byte and what stays fixed
-    small = aligned_fastq(FREE_BLOCKS // 4, BLOCK, seed=SEED + 5)
-    ds = Decoder(encode(small, block_size=BLOCK, mode="global"),
-                 device=DEVICE)
+    ds = Decoder(a_small, device=DEVICE)
     base = _reset_peak()
     if ds.decode_all().tobytes() != small:
         fail("the small anchor-free archive does not decode to its source")
@@ -881,7 +951,7 @@ def phase_global():
     resident = ds.da.device_bytes / len(small)
     del ds
     free = {"corpus_bytes": len(corpus), "encode_s": encode_s,
-            "decode_all_s": free_s, "max_depth": a.max_depth,
+            "encode_wait_s": encode_wait_s, "decode_all_s": free_s, "max_depth": a.max_depth,
             "decoded_blocks_last": d.decoded_blocks_last,
             "peak_device_bytes_above_resident": peak,
             "peak_bytes_per_window_byte": peak / len(corpus),
@@ -898,9 +968,7 @@ def phase_global():
                 else None)}
     del d, out
     # 1 MiB across 2^32: the window rebase wraps on the card
-    corpus = aligned_fastq(WRAP_BLOCKS, BLOCK, seed=SEED + 4)
-    a = encode(corpus, block_size=BLOCK, mode="global",
-               anchor_interval=ANCHOR, origin=WRAP_ORIGIN)
+    corpus, a, _ = wrapped
     d = Decoder(a, device=DEVICE)
     sel = np.array([0, WRAP_BLOCKS // 2 - 1, WRAP_BLOCKS // 2,
                     WRAP_BLOCKS - 1])
@@ -2537,6 +2605,70 @@ def phase_serve_model_plain(corpus, index, store):
     return launches, out
 
 
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_examples() -> dict:
+    """The port's four examples (`examples/*_torch.py`), each in a
+    process of its own on the card, all started together, their output
+    to files under build/examples (no pipe to fill while the plain
+    families and the roofline phase run); collected by
+    `phase_examples`."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out_dir = os.path.join(ROOT, "build", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    procs, files = {}, {}
+    for n, flags in EXAMPLES.items():
+        files[n] = tuple(open(os.path.join(out_dir, f"{n}.{x}"), "w+")
+                         for x in ("out", "err"))
+        procs[n] = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", f"{n}_torch.py"),
+             "--device", DEVICE, *flags], cwd=ROOT, env=env,
+            stdout=files[n][0], stderr=files[n][1], text=True)
+    return {"t0": time.perf_counter(), "procs": procs, "files": files}
+
+
+def phase_examples(started: dict) -> dict:
+    """Waits for the examples `start_examples` started: each must exit 0
+    and end with its JSON line of `ops.LAUNCHES`, its own process's
+    launches of both kernels, which become the path `example_<name>`.
+    Prints the phase's wall time and the wait it added here."""
+    t_wait = time.perf_counter()
+    procs, outs = started["procs"], {}
+    try:
+        for p in procs.values():
+            p.wait(timeout=EXAMPLES_TIMEOUT_S)
+    finally:
+        _stop(procs.values())
+    t_end = time.perf_counter()
+    for n, fs in started["files"].items():
+        outs[n] = []
+        for f in fs:
+            f.seek(0)
+            outs[n].append(f.read())
+            f.close()
+    paths, lines = {}, {}
+    for n, p in procs.items():
+        stdout, stderr = outs[n]
+        tail = stdout.splitlines()[-1:] or [""]
+        try:
+            last = json.loads(tail[0])
+        except ValueError:
+            last = {}
+        if p.returncode or "launches" not in last:
+            fail(f"example {n}: rc {p.returncode}: {stdout[-1500:]} "
+                 f"{stderr[-1500:]}")
+        paths[f"example_{n}"] = last["launches"]
+        lines[n] = stdout.splitlines()[-6:-1]
+    emit({"phase": "examples", "wall_s": t_end - started["t0"],
+          "wait_s": t_end - t_wait, "launches": paths, "tails": lines})
+    return paths
+
+
 def phase_serve_launcher():
     """`python -m repro_torch.launch.serve` with its defaults (reduced
     config, on the card) in a process of its own."""
@@ -2948,6 +3080,7 @@ def phase_roofline(train, served, families, smi):
     for f in sorted(glob.glob(os.path.join(out_dir, "dryrun_*.json"))):
         with open(f) as fh:
             records.extend(json.load(fh))
+    held = _hold_dryrun(records)
     steps = {"train": train["roofline"], "serve_model": served["roofline"]}
     for a, r in families.items():
         steps[f"train:{a}"] = r["train"]["roofline"]
@@ -2967,10 +3100,58 @@ def phase_roofline(train, served, families, smi):
                           "flops_per_device", "bytes_per_device",
                           "coll_bytes_per_device", "dominant",
                           "step_time_s", "roofline_fraction",
-                          "model_flops", "fallbacks")} for r in records]},
+                          "model_flops", "fallbacks")} for r in records],
+                      "held": held},
            "report": rep_out.stdout}
     emit(out)
     return out
+
+
+def _hold_dryrun(records) -> dict:
+    """What the dry-run must read on this machine's PyTorch: train_4k's
+    counted FLOPs x cards within ROOFLINE_FLOPS_RATIO of its model FLOPs
+    and its temp below ROOFLINE_TEMP_MAX, its collective bytes within
+    ROOFLINE_COLLECTIVE_BYTES; in train_4k and prefill_32k
+    the replicate fallbacks at most ROOFLINE_REPLICATE_SHARE of the
+    collective bytes. Prints the readings; fails otherwise."""
+    import torch
+    by = {r["shape"]: r for r in records}
+    held = {"torch": torch.__version__}
+    for s in ("train_4k", "prefill_32k"):
+        r = by[s]
+        coll = sum(r["coll_bytes_per_device"].values())
+        held[s] = {"replicate_share":
+                   r["fallbacks"]["replicate"]["bytes"] / coll if coll else 0.0,
+                   "fallbacks": {k: f["count"] for k, f in
+                                 r["fallbacks"].items() if f["count"]}}
+    train = by["train_4k"]
+    held["train_4k"]["flops_ratio"] = (train["flops_per_device"]
+                                       * train["n_devices"]
+                                       / train["model_flops"])
+    held["train_4k"]["temp_size_in_bytes"] = \
+        train["memory_analysis"]["temp_size_in_bytes"]
+    held["train_4k"]["coll_bytes_per_device"] = \
+        train["coll_bytes_per_device"]
+    print(f"dryrun on torch {held['torch']}: {json.dumps(held)}", flush=True)
+    lo, hi = ROOFLINE_FLOPS_RATIO
+    if not lo <= held["train_4k"]["flops_ratio"] <= hi:
+        fail(f"roofline: train_4k FLOPs x cards / model FLOPs "
+             f"{held['train_4k']['flops_ratio']:.3f} outside {lo}-{hi}")
+    for s in ("train_4k", "prefill_32k"):
+        if held[s]["replicate_share"] > ROOFLINE_REPLICATE_SHARE:
+            fail(f"roofline: {s}'s replicate fallbacks carry "
+                 f"{held[s]['replicate_share']:.3f} of its collective "
+                 f"bytes (at most {ROOFLINE_REPLICATE_SHARE})")
+    coll = sum(train["coll_bytes_per_device"].values())
+    lo, hi = ROOFLINE_COLLECTIVE_BYTES
+    if not lo <= coll <= hi:
+        fail(f"roofline: train_4k collective bytes a card {coll:.4e} "
+             f"outside {lo:.1e}-{hi:.1e}")
+    if held["train_4k"]["temp_size_in_bytes"] >= ROOFLINE_TEMP_MAX:
+        fail(f"roofline: train_4k temp "
+             f"{held['train_4k']['temp_size_in_bytes']:.4e} B, not below "
+             f"{ROOFLINE_TEMP_MAX:.0e}")
+    return held
 
 
 def main() -> None:
@@ -2980,15 +3161,18 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
+    # daemonic workers: they end with the smoke if it fails before
+    # phase_global takes their archives
+    pool, encodes = start_encodes()
     smi = phase_device()
     small_err = phase_kernels_vs_plain()
-    corpus, index, store, tiled, a16 = phase_resident()
+    corpus, index, store, tiled, a16 = phase_resident(encodes)
     paths = {}
     paths["decode"], dec_calls = phase_decode(corpus, store)
     paths["fetch"], fetch_calls = phase_fetch(corpus, index, store)
     timing = phase_timing(store)
     profile = phase_profile(store, a16)
-    paths["global"], window = phase_global()
+    paths["global"], window = phase_global(pool, encodes)
     paths["mode1"] = phase_mode1(corpus, index, store)
     paths["stream"] = phase_stream(corpus, store)
     paths["cache"] = phase_cache(corpus, index, tiled)
@@ -3008,14 +3192,24 @@ def main() -> None:
         corpus, index, store)
     phase_serve_launcher()
     fam_paths, families = phase_families(corpus, index, store, smi)
-    plain_paths, fam_plain = phase_families_plain(corpus, index, store)
-    roofline = phase_roofline(train, served, families, smi)
+    # the examples run on the card in their own processes while the
+    # plain families (CPU references of tiny card steps) and the dry-run
+    # (host work on meta tensors) run
+    examples = start_examples()
+    try:
+        plain_paths, fam_plain = phase_families_plain(corpus, index, store)
+        roofline = phase_roofline(train, served, families, smi)
+    except BaseException:
+        _stop(examples["procs"].values())
+        raise
+    ex_paths = phase_examples(examples)
     paths.update(fam_paths)
     paths.update(plain_paths)
+    paths.update(ex_paths)
     # the paths each kernel runs on, and those it must not
     both = ("stream", "cache", "heal", "partial", "serve", "shard", "train",
             "train_dp", "checkpoint", "tune", "serve_model",
-            "serve_model_plain", *fam_paths, *plain_paths)
+            "serve_model_plain", *fam_paths, *plain_paths, *ex_paths)
     runs_on = {"rans_decode": ("decode", "fetch", "global", *both),
                "lz77_match": ("decode", "fetch", "mode1", *both)}
     for k, on in runs_on.items():
@@ -3076,7 +3270,8 @@ def main() -> None:
                              for k, v in roofline["steps"].items()},
           "state_allocated_over_reckoned":
               roofline["memory"]["allocated_over_reckoned"],
-          "dryrun_wall_s": roofline["dryrun"]["wall_s"]})
+          "dryrun_wall_s": roofline["dryrun"]["wall_s"],
+          "dryrun_held": roofline["dryrun"]["held"]})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

@@ -22,11 +22,19 @@ reference's structs, logical axes and rules) and then:
   inputs plus outputs (eager, unfused: XLA counts a fused program, so
   these are larger), collectives the `_c10d_functional` ops DTensor
   ran, by kind, at their per-device output bytes. The kinds are
-  DTensor's choices, not XLA's partitioner's (on the fake CPU group an
-  all-to-all runs as an all-gather and a chunk);
+  DTensor's choices, not XLA's partitioner's (a Partial → Shard move is
+  a reduce-scatter); a Shard(i) → Shard(j) move, which a "cpu" group
+  runs as an all-gather and a chunk, counts as the one all-to-all a
+  card's group runs (`_alltoall_as_one`);
 - `temp_size_in_bytes` has no twin (XLA's buffer assignment): the port
   reports the peak of live bytes the traced step's local ops allocated
-  on one rank, an estimate.
+  on one rank, an estimate (the zeros of the loss gather's backward
+  placed as the logits are, as XLA places them).
+
+DTensor's placements differ between PyTorch versions: 2.11 refuses the
+flatten of a batch and a sequence sharded on two mesh dims that every
+`_mm` of a seq-sharded activation does, which `CostMode` runs on the
+shards ("flatten" fallbacks), as 2.13 places it.
 
 `CostMode` is the port's counterpart of the reference's
 `compat.cost_analysis` (the record's "flops" and "bytes accessed"), and
@@ -171,13 +179,50 @@ def _marking_propagation():
             setattr(ShardingPropagator, n, f)
 
 
-FALLBACKS = ("masked", "partial", "replicate", "local", "whole")
+@contextlib.contextmanager
+def _alltoall_as_one():
+    """DTensor moves a Shard(i) → Shard(j) on one mesh dim with an
+    all-to-all, which a process group on "cpu" devices runs as an
+    all-gather and a chunk. For the body of a `with`, the running
+    `CostMode` records each such move as the one all-to-all of its
+    per-device output bytes that a card's group runs, and counts none of
+    the stand-in's ops."""
+    from torch.distributed.tensor import placement_types as pt
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    orig = getattr(pt, "shard_dim_alltoall", None)
+    if orig is None:
+        raise RuntimeError("this PyTorch's DTensor has no "
+                           "placement_types.shard_dim_alltoall to mark")
+
+    @functools.wraps(orig)
+    def one(*a, **k):
+        _PROPAGATING[0] += 1
+        try:
+            out = orig(*a, **k)
+        finally:
+            _PROPAGATING[0] -= 1
+        mode = _get_current_dispatch_mode()
+        if isinstance(mode, CostMode):
+            mode.collectives.append(("all-to-all", _nbytes(out)))
+            mode._hold(out)
+        return out
+
+    pt.shard_dim_alltoall = one
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = orig
+
+
+FALLBACKS = ("masked", "partial", "replicate", "local", "flatten", "whole")
 # what CostMode does where DTensor cannot run an op on its operands'
 # placements: "masked" all-reduces a masked embedding partial, "partial"
 # reduces partial sums, "replicate" replicates the shards of one mesh
 # dim, "local" runs an in-place op on its target's own shard (or an
-# elementwise op with no sharding strategy on the shards), "whole" runs
-# an op with no sharding strategy on whole tensors
+# elementwise op with no sharding strategy on the shards), "flatten"
+# runs a view that flattens dims sharded on different mesh dims on the
+# shards (DTensor 2.11 refuses it; `_flatten_local`), "whole" runs an op
+# with no sharding strategy on whole tensors
 
 
 def fmt_fallbacks(fallbacks: Dict) -> str:
@@ -242,6 +287,83 @@ def _local_operands(target, args, kwargs):
     return pytree.tree_map_only(DTensor, local, (args, kwargs))
 
 
+_VIEWS = ("view", "_unsafe_view", "reshape")
+_ROWS = {torch.ops.aten.mm.default: 1, torch.ops.aten.bmm.default: 2}
+# the leading dims of a product's first operand its output keeps
+
+
+def _view_groups(src, dst):
+    """[(in_dims, out_dims)]: a view from shape `src` to `dst` as groups
+    of equal products (a dim kept, dims flattened into one, or one split
+    into several); trailing size-1 dims join the last group. None where
+    the shapes do not pair so (an empty dim, a -1 left to infer)."""
+    if not src or not dst or min(src) < 1 or min(dst) < 1:
+        return None
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        ins, outs, a, b = [i], [j], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b and i < len(src):
+                ins.append(i)
+                a, i = a * src[i], i + 1
+            elif b < a and j < len(dst):
+                outs.append(j)
+                b, j = b * dst[j], j + 1
+            else:
+                return None
+        groups.append((ins, outs))
+    if any(d != 1 for d in src[i:]) or any(d != 1 for d in dst[j:]):
+        return None
+    groups[-1][0].extend(range(i, len(src)))
+    groups[-1][1].extend(range(j, len(dst)))
+    return groups
+
+
+def _local_shape(shape, placements, mesh):
+    """The local shape of a tensor of global `shape` placed so (Shard,
+    Replicate or Partial, each split even); None otherwise."""
+    from torch.distributed.tensor import Shard
+    local = list(shape)
+    for k, p in enumerate(placements):
+        if type(p) is Shard:
+            if local[p.dim] % mesh.size(k):
+                return None
+            local[p.dim] //= mesh.size(k)
+        elif not (p.is_replicate() or p.is_partial()):
+            return None
+    return local
+
+
+def _contiguous(local, mesh, placements, shape):
+    """`local` as a DTensor of global `shape` placed so, contiguous."""
+    from torch.distributed.tensor import DTensor
+    stride = tuple(int(np.prod(shape[d + 1:])) for d in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _carry_flat_src(func, args, out) -> None:
+    """Marks `out` with the `_flat_src` of an operand whose rows it keeps:
+    a product's (`aten.mm`, `aten.bmm`: its first operand's rows, and
+    batch for bmm), or an operand's of the same shape and placements (an
+    elementwise op, a cast), so the view that splits the rows back finds
+    where they came from."""
+    from torch.distributed.tensor import DTensor
+    if func in _ROWS:
+        if hasattr(args[0], "_flat_src"):
+            out._flat_src = {o: v for o, v in args[0]._flat_src.items()
+                             if o < _ROWS[func]}
+        return
+    if not isinstance(out, DTensor):
+        return
+    for a in pytree.tree_leaves(args):
+        if (hasattr(a, "_flat_src") and a.shape == out.shape
+                and a.placements == out.placements):
+            out._flat_src = a._flat_src
+            return
+
+
 def _masked(out) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(out, DTensor) and any(
@@ -281,7 +403,11 @@ class CostMode(TorchDispatchMode):
     keeps its target's placement: where DTensor refuses it or would move
     the target (gather a cache sharded along the written dim), its
     counts are undone and it runs on the target's own shard. Any other
-    error fails the trace. On plain tensors it counts every op."""
+    error fails the trace. A view DTensor refuses that flattens dims
+    sharded on different mesh dims runs on the shards, and the view that
+    splits its product's rows back too (`_flatten_local`). The zeros of
+    `gather`'s backward are placed as the gathered tensor
+    (`_zeros_as_gathered`). On plain tensors it counts every op."""
 
     def __init__(self):
         super().__init__()
@@ -292,9 +418,19 @@ class CostMode(TorchDispatchMode):
         self.peak_live = 0
         self.fallbacks = {}
         self._in_dtensor = False
+        # (gathered shape, dtype, gather's output shape) -> the gathered
+        # tensors' (mesh, placements), one entry a gather not yet undone
+        self._gathered = {}
 
     def _free(self, n: int) -> None:
         self.live -= n
+
+    def _hold(self, t) -> None:
+        """Count `t`, a fresh output, live until it is freed."""
+        n = _nbytes(t)
+        self.live += n
+        weakref.finalize(t, self._free, n)
+        self.peak_live = max(self.peak_live, self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -329,10 +465,7 @@ class CostMode(TorchDispatchMode):
         self.bytes += sum(_nbytes(t) for t in ins + outs)
         if _fresh(func):
             for t in outs:
-                n = _nbytes(t)
-                self.live += n
-                weakref.finalize(t, self._free, n)
-            self.peak_live = max(self.peak_live, self.live)
+                self._hold(t)
         return out
 
     def _note(self, kind: str, n: int) -> None:
@@ -368,11 +501,144 @@ class CostMode(TorchDispatchMode):
                                   run_check=False, shape=first.shape,
                                   stride=first.stride())
 
+    def _flatten_local(self, func, args, kwargs):
+        """A view DTensor refused that flattens dims sharded on different
+        mesh dims (2.11: "Attempted to flatten multiple dimensions, with
+        dimension 1 being sharded"; `_mm`'s (B, S, E) → (B·S, E) with B
+        on "data" and S on "model", attention's (B, KV, G, S, D) →
+        (B·KV, G·S, D)) runs on the local shards: each mesh dim shards
+        the output dim its input dim went into (a flattened dim nested,
+        in mesh-dim order), as many rows a rank as the shards hold. Those
+        placements say each rank holds a contiguous block of the rows; it
+        holds a strided set (its B rows' shards of S). The bytes and
+        FLOPs of a row-wise op are the same either way, but the rows'
+        order is not, so the output remembers, for each flattened dim,
+        the dims it flattened and which mesh dim sharded which
+        (`_flat_src`). An op that keeps the rows carries it
+        (`_carry_flat_src`: a product, an elementwise op), and the view
+        that splits them back restores the placement it came from
+        (`_unflatten_local`). None where the view is not such a flatten
+        (a split or a partial sum of a sharded dim, an uneven shard)."""
+        from torch.distributed.tensor import DTensor, Shard
+        t = args[0]
+        if kwargs or not isinstance(t, DTensor):
+            return None
+        shape = tuple(args[1])
+        groups = _view_groups(tuple(t.shape), shape)
+        if groups is None:
+            return None
+        group_of = {d: g for g, (ins, _) in enumerate(groups) for d in ins}
+        placements, src = [], {}
+        for k, p in enumerate(t.placements):
+            if p.is_replicate():
+                placements.append(p)
+                continue
+            if type(p) is not Shard or t.shape[p.dim] % t.device_mesh.size(k):
+                return None
+            ins, outs = groups[group_of[p.dim]]
+            if len(outs) != 1:
+                return None
+            placements.append(Shard(outs[0]))
+            if len(ins) > 1:
+                src.setdefault(outs[0], (tuple(t.shape[d] for d in ins),
+                                         {}))[1][k] = ins.index(p.dim)
+        if not any(any(m.values()) for _, m in src.values()):
+            return None
+        local, local_shape = t.to_local(), []
+        for ins, outs in groups:
+            if len(outs) == 1:
+                local_shape.append(int(np.prod([local.shape[d]
+                                                for d in ins])))
+            else:
+                local_shape.extend(shape[o] for o in outs)
+        n = len(self.collectives)
+        out = _contiguous(func(local, local_shape), t.device_mesh,
+                          placements, shape)
+        out._flat_src = src
+        self._note("flatten", n)
+        return out
+
+    def _unflatten_local(self, func, args, kwargs):
+        """A view that splits `_flatten_local` outputs' dims back into the
+        dims they flattened runs on the local shards too: a mesh dim that
+        still shards such a dim shards the one it sharded before the
+        flatten, any other placement follows its dim. None for any other
+        view of a sharded dim."""
+        from torch.distributed.tensor import Shard
+        t = args[0]
+        if kwargs:
+            return None
+        shape = tuple(args[1])
+        groups = _view_groups(tuple(t.shape), shape)
+        if groups is None:
+            return None
+        group_of = {d: g for g, (ins, _) in enumerate(groups) for d in ins}
+        placements = []
+        for k, p in enumerate(t.placements):
+            if type(p) is Shard:
+                ins, outs = groups[group_of[p.dim]]
+                if len(ins) != 1:
+                    return None
+                if len(outs) > 1:
+                    sizes, src = t._flat_src.get(p.dim, ((), {}))
+                    if tuple(shape[o] for o in outs) != sizes \
+                            or k not in src:
+                        return None
+                    p = Shard(outs[src[k]])
+                else:
+                    p = Shard(outs[0])
+            elif not (p.is_replicate() or p.is_partial()):
+                return None
+            placements.append(p)
+        mesh, local = t.device_mesh, t.to_local()
+        local_shape = _local_shape(shape, placements, mesh)
+        if local_shape is None \
+                or int(np.prod(local_shape)) != local.numel():
+            return None
+        return _contiguous(func(local, local_shape), mesh, placements,
+                           shape)
+
+    def _zeros_as_gathered(self, func, args, kwargs):
+        """`gather`'s backward makes zeros of the gathered tensor's shape
+        (`new_zeros` on the loss gradient, replicated) and scatters the
+        gradient into them. They take the placement of the tensor that
+        was gathered (the logits'), so each rank holds its shard of the
+        B·S·V zeros, as XLA's partitioner places them. Only a `new_zeros`
+        of a gathered tensor's shape and dtype, made on a gradient of
+        that gather's output shape, is one; each gather places one. None
+        for any other `new_zeros`."""
+        t, size = args[0], tuple(args[1])
+        key = (size, kwargs.get("dtype") or t.dtype, tuple(t.shape))
+        if not self._gathered.get(key):
+            return None
+        mesh, placements = self._gathered[key][-1]
+        local_shape = _local_shape(size, placements, mesh)
+        if local_shape is None or mesh != t.device_mesh:
+            return None
+        self._gathered[key].pop()
+        return _contiguous(func(t.to_local(), local_shape, **kwargs), mesh,
+                           placements, size)
+
     def _run_dtensor(self, func, args, kwargs):
         from torch.distributed.tensor import DTensor, Partial, Replicate
+        aten = torch.ops.aten
+        view = func._overloadpacket.__name__ in _VIEWS
         self._in_dtensor = True
         try:
             with self:
+                if view and hasattr(args[0], "_flat_src"):
+                    out = self._unflatten_local(func, args, kwargs)
+                    if out is not None:
+                        return out
+                if func is aten.new_zeros.default:
+                    out = self._zeros_as_gathered(func, args, kwargs)
+                    if out is not None:
+                        return out
+                if func is aten.gather.default:
+                    src, index = args[0], args[2]
+                    self._gathered.setdefault(
+                        (tuple(src.shape), src.dtype, tuple(index.shape)),
+                        []).append((src.device_mesh, tuple(src.placements)))
                 target = args[0] if func._schema.is_mutable else None
                 spec = getattr(target, "_spec", None)
                 saved = (self.flops, self.bytes, len(self.collectives),
@@ -384,6 +650,8 @@ class CostMode(TorchDispatchMode):
                             n = len(self.collectives)
                             out = _reduce_masked(out)
                             self._note("masked", n)
+                        else:
+                            _carry_flat_src(func, args, out)
                         return out
                     # DTensor moved an in-place op's target (gathered a
                     # cache sharded along the written dim): undo its counts
@@ -394,6 +662,10 @@ class CostMode(TorchDispatchMode):
                 except _UNPLACEABLE as e:
                     if not _unplaceable(e):
                         raise
+                    if view:
+                        out = self._flatten_local(func, args, kwargs)
+                        if out is not None:
+                            return out
                     if isinstance(e, NotImplementedError) and target is None:
                         out = self._pointwise_local(func, args, kwargs)
                         if out is not None:
@@ -631,7 +903,8 @@ def count_cell(fn, args, in_sh, mesh, rules) -> Dict:
         cm.set_attn_impl("blockwise", ATTN_KV_CHUNK)
         try:
             with mesh_context(dmesh), implicit_replication(), \
-                    _marking_propagation(), CostMode() as cost:
+                    _marking_propagation(), _alltoall_as_one(), \
+                    CostMode() as cost:
                 fn(*dargs)
             del dargs
         finally:

@@ -899,3 +899,50 @@ def test_mfu_of_a_timed_step_is_a_share(cuda_device):
     print(f"mfu {r['mfu']:.4f} roofline share {r['roofline_share']:.4f} "
           f"({r['bound_by']})")
     assert 0 < r["mfu"] <= 1 and 0 < r["roofline_share"] <= 1
+
+
+# ------------------------------------------------------------- dry-run
+@pytest.mark.parametrize("cell", ["tiny_train", "train_4k"])
+def test_dense_train_cell_counts_on_this_pytorch(cell):
+    """The dry-run's dense train cells counted on this machine's own
+    PyTorch, whose DTensor may place a product otherwise than the one the
+    CPU tests run on: the reduced cell (qwen2-1.5b cut to 2 layers, B=8 x
+    T=64 on a (4, 2) mesh) and qwen2-1.5b's train_4k on the single-pod
+    (16, 16) mesh, both in a fake world. The FLOPs times the devices lie
+    within 1.0-2.0x the model FLOPs 6·N·D, and the ops DTensor refused,
+    run replicated by `CostMode`, carry at most 0.2 of the collective
+    bytes; train_4k's `temp` (the loss gradient's zeros per shard) stays
+    below 128 GB. Host work on meta tensors: no card is needed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.roofline import hlo_costs as rl
+    if cell == "tiny_train":
+        mesh = make_mesh((4, 2), ("data", "model"), ["meta"] * 8)
+        cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                                  n_layers=2)
+        fn, args, in_sh, _, _, _ = dr.build_cell(
+            cfg, ShapeConfig("tiny_train", 64, 8, "train"), mesh)
+        m = dr.count_cell(fn, args, in_sh, mesh, dr.rules_for(cfg))
+        n_dev, model_flops = mesh.size, rl.model_flops_train(cfg, 8 * 64)
+    else:
+        rec = dr.run_cell("qwen2-1.5b", cell, "single", verbose=False)
+        m = {"flops": rec["flops_per_device"],
+             "temp": rec["memory_analysis"]["temp_size_in_bytes"],
+             "fb_replicate_bytes": rec["fallbacks"]["replicate"]["bytes"],
+             **{f"coll_{k}": v
+                for k, v in rec["coll_bytes_per_device"].items()}}
+        n_dev, model_flops = rec["n_devices"], rec["model_flops"]
+    ratio = m["flops"] * n_dev / model_flops
+    coll = sum(v for k, v in m.items() if k.startswith("coll_"))
+    share = m["fb_replicate_bytes"] / coll
+    print(f"torch {torch.__version__}, {cell}: flops x devices / model "
+          f"flops {ratio:.3f}, replicate share {share:.3f}, "
+          f"temp {m['temp']:.4e} B, collectives "
+          f"{ {k[5:]: v for k, v in m.items() if k.startswith('coll_')} }")
+    assert 1.0 <= ratio <= 2.0, ratio
+    assert share <= 0.2, share
+    if cell == "train_4k":
+        assert m["temp"] < 128e9, m["temp"]

@@ -6,6 +6,7 @@ refuse to run on the CPU unless asked to."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -188,22 +189,36 @@ def test_tiled_archive_equals_encoding_the_tiled_corpus(tiles, parity):
         tiling.tile_archive(a, 3)
 
 
-def _imported_modules(path: pathlib.Path):
-    for node in ast.walk(ast.parse(path.read_text())):
+def _imported_modules(source: str):
+    for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
             yield from (n.name for n in node.names)
         elif isinstance(node, ast.ImportFrom):
             yield node.module or ""
 
 
+def _shell_python(path: pathlib.Path):
+    """The Python a shell script runs inline: its `python -c "..."`
+    strings and its `<<'PYEOF'` here-documents."""
+    text = path.read_text()
+    yield from re.findall(r'python -c "([^"]*)"', text)
+    yield from re.findall(r"<<'PYEOF'\n(.*?)\nPYEOF", text, re.S)
+
+
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    sources = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    root = PORT.parents[1]
+    sources = (sorted(PORT.rglob("*.py")) + [root / "chip_smoke.py"]
+               + sorted((root / "examples").glob("*_torch.py")))
     scanned = {p.parent.name for p in sources}
     assert {"api", "checkpoint", "configs", "core", "data", "distributed",
             "kernels", "launch", "models", "resilience", "serving",
-            "training", "tune"} <= scanned, scanned
-    for path in sources:
-        for m in _imported_modules(path):
+            "training", "tune", "examples"} <= scanned, scanned
+    assert len([p for p in sources if p.parent.name == "examples"]) == 4
+    inline = list(_shell_python(root / "scripts" / "ci_torch.sh"))
+    assert len(inline) >= 3, inline
+    for path, text in [(p, p.read_text()) for p in sources] + [
+            (root / "scripts" / "ci_torch.sh", t) for t in inline]:
+        for m in _imported_modules(text):
             assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                 f"{path}: imports {m}"
 

@@ -38,9 +38,13 @@ the dry-run's reckoning; and the dry-run itself
 256-rank world) runs for qwen2-1.5b on the single-pod mesh, held on
 this machine's own PyTorch to train_4k's FLOPs within 1-2x the model
 FLOPs, its temp below 128 GB, its collective bytes within a band and
-the replicate fallbacks' share of them at most 0.2; from the plain
-families on, the port's four examples (`examples/*_torch.py`) run on
-the card, each in a process of its own, both kernels launched on each.
+the replicate fallbacks' share of them at most 0.2; from the families
+on, the reduced xLSTM train cell's dry-run on a 3-D ("pod", "data",
+"model") mesh and its 2-D twin (the card test
+`test_xlstm_multi_pod_cell_counts_on_this_pytorch`, host work) run
+beside the card's phases and must pass; from the plain families on,
+the port's four examples (`examples/*_torch.py`) run on the card, each
+in a process of its own, both kernels launched on each.
 Host encodes run in worker processes from the start.
 It checks every decoded and served byte against the source. Each phase
 prints one JSON line, with `t_s`, the seconds so far; the last line is
@@ -164,6 +168,9 @@ EXAMPLES = {                       # examples/<name>_torch.py at their
     "elastic_restart": [],
 }
 EXAMPLES_TIMEOUT_S = 300
+MULTIPOD_TEST = ("tests/test_torch_cuda.py::"     # the reduced xLSTM
+                 "test_xlstm_multi_pod_cell_counts_on_this_pytorch")
+MULTIPOD_TIMEOUT_S = 600           # cell on 3-D and 2-D meshes (host)
 ENCODE_TIMEOUT_S = 600             # phase_global's wait for its encodes
 SEED = 12
 DEVICE = "cuda"
@@ -2632,6 +2639,42 @@ def start_examples() -> dict:
     return {"t0": time.perf_counter(), "procs": procs, "files": files}
 
 
+def start_multipod() -> dict:
+    """MULTIPOD_TEST (the dry-run's reduced xLSTM train cell on the
+    (2, 2, 2) and (4, 2) meshes, host work on meta tensors) under pytest
+    in a process of its own, its output to a file under build/roofline;
+    collected by `phase_roofline`."""
+    out_dir = os.path.join(ROOT, "build", "roofline")
+    os.makedirs(out_dir, exist_ok=True)
+    f = open(os.path.join(out_dir, "multipod.out"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytest", "-q", "-s", "-p",
+         "no:cacheprovider", MULTIPOD_TEST], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        stdout=f, stderr=subprocess.STDOUT, text=True)
+    return {"t0": time.perf_counter(), "proc": proc, "file": f}
+
+
+def _multipod(started: dict) -> dict:
+    """Waits for `start_multipod`'s test: it must pass. Its wall, the
+    wait it added here and its reading line."""
+    t_wait = time.perf_counter()
+    try:
+        started["proc"].wait(timeout=MULTIPOD_TIMEOUT_S)
+    finally:
+        _stop([started["proc"]])
+    t_end = time.perf_counter()
+    started["file"].seek(0)
+    out = started["file"].read()
+    started["file"].close()
+    if started["proc"].returncode:
+        fail(f"roofline: {MULTIPOD_TEST} exited "
+             f"{started['proc'].returncode}: {out[-3000:]}")
+    return {"wall_s": t_end - started["t0"], "wait_s": t_end - t_wait,
+            "reading": next((ln for ln in out.splitlines()
+                             if ln.startswith("torch ")), "")}
+
+
 def phase_examples(started: dict) -> dict:
     """Waits for the examples `start_examples` started: each must exit 0
     and end with its JSON line of `ops.LAUNCHES`, its own process's
@@ -3032,7 +3075,7 @@ def phase_families_plain(corpus, index, store):
     return paths, results
 
 
-def phase_roofline(train, served, families, smi):
+def phase_roofline(train, served, families, smi, multipod):
     """The dry-run where there is no JAX: `python -m
     repro_torch.launch.dryrun` for each runnable shape of ROOFLINE_ARCH
     on the ROOFLINE_MESH production mesh (meta tensors over a fake world
@@ -3081,6 +3124,7 @@ def phase_roofline(train, served, families, smi):
         with open(f) as fh:
             records.extend(json.load(fh))
     held = _hold_dryrun(records)
+    multipod = _multipod(multipod)
     steps = {"train": train["roofline"], "serve_model": served["roofline"]}
     for a, r in families.items():
         steps[f"train:{a}"] = r["train"]["roofline"]
@@ -3101,7 +3145,7 @@ def phase_roofline(train, served, families, smi):
                           "coll_bytes_per_device", "dominant",
                           "step_time_s", "roofline_fraction",
                           "model_flops", "fallbacks")} for r in records],
-                      "held": held},
+                      "held": held, "multipod": multipod},
            "report": rep_out.stdout}
     emit(out)
     return out
@@ -3191,16 +3235,23 @@ def main() -> None:
     paths["serve_model_plain"], served_plain = phase_serve_model_plain(
         corpus, index, store)
     phase_serve_launcher()
-    fam_paths, families = phase_families(corpus, index, store, smi)
+    # the multi-pod dry-run twin (host work) runs beside the families
+    multipod = start_multipod()
+    try:
+        fam_paths, families = phase_families(corpus, index, store, smi)
+    except BaseException:
+        _stop([multipod["proc"]])
+        raise
     # the examples run on the card in their own processes while the
     # plain families (CPU references of tiny card steps) and the dry-run
     # (host work on meta tensors) run
     examples = start_examples()
     try:
         plain_paths, fam_plain = phase_families_plain(corpus, index, store)
-        roofline = phase_roofline(train, served, families, smi)
+        roofline = phase_roofline(train, served, families, smi, multipod)
     except BaseException:
         _stop(examples["procs"].values())
+        _stop([multipod["proc"]])
         raise
     ex_paths = phase_examples(examples)
     paths.update(fam_paths)
@@ -3271,7 +3322,8 @@ def main() -> None:
           "state_allocated_over_reckoned":
               roofline["memory"]["allocated_over_reckoned"],
           "dryrun_wall_s": roofline["dryrun"]["wall_s"],
-          "dryrun_held": roofline["dryrun"]["held"]})
+          "dryrun_held": roofline["dryrun"]["held"],
+          "dryrun_multipod": roofline["dryrun"]["multipod"]})
     replaces = {"rans_decode": "src/repro/kernels/rans_decode.py:32",
                 "lz77_match": "src/repro/kernels/lz77_match.py:30"}
     print(smi, flush=True)

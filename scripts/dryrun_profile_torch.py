@@ -42,11 +42,12 @@ STAGES = {  # DTensor functions a sample is classed by, innermost first
     "_propagate_tensor_meta_non_cached": "fake-tensor propagation",
     "propagate_op_sharding_non_cached": "sharding propagation (other)",
 }
-# CostMode's fallbacks: the redistributes of "partial" and "replicate"
-# (`rep`), "flatten", "local", "whole" (`full_tensor`) and "masked"
-FALLBACK_FRAMES = ("rep", "_flatten_local", "_unflatten_local",
-                   "_pointwise_local", "_local_operands", "full_tensor",
-                   "_reduce_masked")
+# CostMode's fallbacks: the redistributes of "partial" (`rep`, and
+# `_scatter_partials` on a 3-D mesh) and "replicate" (`rep`), "flatten",
+# "local", "whole" (`full_tensor`) and "masked"
+FALLBACK_FRAMES = ("rep", "_scatter_partials", "_flatten_local",
+                   "_unflatten_local", "_pointwise_local", "_local_operands",
+                   "full_tensor", "_reduce_masked")
 
 
 def classify(frame) -> tuple:

@@ -34,7 +34,13 @@ reference's structs, logical axes and rules) and then:
 DTensor's placements differ between PyTorch versions: 2.11 refuses the
 flatten of a batch and a sequence sharded on two mesh dims that every
 `_mm` of a seq-sharded activation does, which `CostMode` runs on the
-shards ("flatten" fallbacks), as 2.13 places it.
+shards ("flatten" fallbacks), as 2.13 places it. On a mesh of three dims
+(the multi-pod (2, 16, 16)) `CostMode` does so before DTensor sees such a
+view, on both versions: 2.13's strided placement of it sends every
+redistribution into a graph search that outlasts the trace. There it
+also reduces a product's partial sums before the product and aligns the
+operands of an elementwise op without a strategy; a 2-D mesh keeps
+DTensor's own route (`_AHEAD_NDIM`).
 
 `CostMode` is the port's counterpart of the reference's
 `compat.cost_analysis` (the record's "flops" and "bytes accessed"), and
@@ -46,8 +52,9 @@ which is exact for a program linear in depth. The port walks its layers
 and the sLSTM's steps in Python loops, so a trace counts every step (the
 reference adds `_slstm_analytic` because XLA counts a scan body once);
 for xLSTM's train and prefill cells the sequence is cut too, to two
-multiples of the mLSTM chunk, and fitted linearly in S (the family has
-no attention, so its cost is A + B·S + d·(C + D·S)).
+multiples of the mLSTM chunk (2 and 4; 4 and 8 on a 3-D mesh), and
+fitted linearly in S (the family has no attention, so its cost is
+A + B·S + d·(C + D·S)).
 
 Usage (host work on meta tensors: no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \
@@ -265,6 +272,21 @@ def _unplaceable(e) -> bool:
     return False
 
 
+def _moved(t, placements):
+    """The DTensor `t` redistributed to `placements`. `CostMode`'s
+    fallbacks run below autograd; in a backward, a redistribute of a
+    tensor that requires grad ends in a `detach_` of its output, which
+    DTensor 2.11 has no strategy for, so there `t` is detached first."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    if t.requires_grad and not any(
+            torch.ops.aten.detach_.default in getattr(prop, n, {})
+            for n in ("op_strategy_funcs", "op_to_rules",
+                      "op_single_dim_strategy_funcs")):
+        t = t.detach()
+    return t.redistribute(t.device_mesh, placements)
+
+
 def _local_operands(target, args, kwargs):
     """`(args, kwargs)` of an in-place op on `target`'s own shard: every
     other DTensor placed as the target on each mesh dim (replicated on a
@@ -282,14 +304,18 @@ def _local_operands(target, args, kwargs):
                 and t.shape[q.dim] != target.shape[q.dim])
             p.append(q if keep and not q.is_partial() else Replicate())
         if p != list(t.placements):
-            t = t.redistribute(t.device_mesh, p)
+            t = _moved(t, p)
         return t.to_local()
     return pytree.tree_map_only(DTensor, local, (args, kwargs))
 
 
 _VIEWS = ("view", "_unsafe_view", "reshape")
-_ROWS = {torch.ops.aten.mm.default: 1, torch.ops.aten.bmm.default: 2}
-# the leading dims of a product's first operand its output keeps
+_AHEAD_NDIM = 3
+# on a mesh of this many dims or more, `CostMode` places strided flattens,
+# products of partial sums and elementwise ops without a strategy ahead
+# of DTensor; a smaller mesh keeps DTensor's own route, as the single-pod
+# grid was read
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
 
 
 def _view_groups(src, dst):
@@ -343,27 +369,6 @@ def _contiguous(local, mesh, placements, shape):
                               shape=torch.Size(shape), stride=stride)
 
 
-def _carry_flat_src(func, args, out) -> None:
-    """Marks `out` with the `_flat_src` of an operand whose rows it keeps:
-    a product's (`aten.mm`, `aten.bmm`: its first operand's rows, and
-    batch for bmm), or an operand's of the same shape and placements (an
-    elementwise op, a cast), so the view that splits the rows back finds
-    where they came from."""
-    from torch.distributed.tensor import DTensor
-    if func in _ROWS:
-        if hasattr(args[0], "_flat_src"):
-            out._flat_src = {o: v for o, v in args[0]._flat_src.items()
-                             if o < _ROWS[func]}
-        return
-    if not isinstance(out, DTensor):
-        return
-    for a in pytree.tree_leaves(args):
-        if (hasattr(a, "_flat_src") and a.shape == out.shape
-                and a.placements == out.placements):
-            out._flat_src = a._flat_src
-            return
-
-
 def _masked(out) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(out, DTensor) and any(
@@ -376,7 +381,7 @@ def _reduce_masked(out):
     residual stream) would lose it. Reduce it at once (an all-reduce), as
     XLA reduces the gather's partial result."""
     from torch.distributed.tensor import Replicate
-    return out.redistribute(out.device_mesh, [
+    return _moved(out, [
         Replicate() if "MaskPartial" in type(p).__name__ else p
         for p in out.placements])
 
@@ -404,10 +409,15 @@ class CostMode(TorchDispatchMode):
     the target (gather a cache sharded along the written dim), its
     counts are undone and it runs on the target's own shard. Any other
     error fails the trace. A view DTensor refuses that flattens dims
-    sharded on different mesh dims runs on the shards, and the view that
-    splits its product's rows back too (`_flatten_local`). The zeros of
-    `gather`'s backward are placed as the gathered tensor
-    (`_zeros_as_gathered`). On plain tensors it counts every op."""
+    sharded on different mesh dims runs on the shards, and a view that
+    splits such a dim back too (`_flatten_local`, `_unflatten_local`). On
+    a mesh of three or more dims such a flatten runs on the shards before
+    DTensor sees it, a product's partial sums are scattered first
+    (`_scatter_partials`), an elementwise op without a strategy runs on
+    its operands moved to one placement, and a view DTensor refuses
+    keeps its partial sums. The zeros of `gather`'s backward are placed
+    as the gathered tensor (`_zeros_as_gathered`). On plain tensors it
+    counts every op."""
 
     def __init__(self):
         super().__init__()
@@ -421,6 +431,9 @@ class CostMode(TorchDispatchMode):
         # (gathered shape, dtype, gather's output shape) -> the gathered
         # tensors' (mesh, placements), one entry a gather not yet undone
         self._gathered = {}
+        # (flattened sizes, mesh dims sharding them) -> {mesh dim: index
+        # of the flattened dim it shards}, one entry a `_flatten_local`
+        self._flats = {}
 
     def _free(self, n: int) -> None:
         self.live -= n
@@ -479,46 +492,94 @@ class CostMode(TorchDispatchMode):
         """An op with no sharding strategy whose DTensor operands share
         one shape and one placement with no partial sum, and whose output
         has their local shape (`log_sigmoid_backward`), is elementwise:
-        run on the local shards, its output so placed. None otherwise."""
+        run on the local shards, its output so placed. On a mesh of three
+        or more dims (`_AHEAD_NDIM`) operands of that shape placed
+        otherwise are first moved to the first operand's placement (a
+        chunk of a replicated dim, an all-to-all of a shard, a
+        reduce-scatter of a partial sum; counted). None otherwise."""
         from torch.distributed.tensor import DTensor
         ds = [t for t in pytree.tree_leaves((args, kwargs))
               if isinstance(t, DTensor)]
         first = ds[0]
-        if any(t.shape != first.shape or t.placements != first.placements
-               for t in ds) or any(p.is_partial() for p in first.placements):
+        if any(t.shape != first.shape for t in ds) \
+                or any(p.is_partial() for p in first.placements):
             return None
+        saved = (self.flops, self.bytes, len(self.collectives))
+        if any(t.placements != first.placements for t in ds):
+            if first.device_mesh.ndim < _AHEAD_NDIM:
+                return None
+            args, kwargs = pytree.tree_map_only(
+                DTensor, lambda t: _moved(t, first.placements),
+                (args, kwargs))
         local = first.to_local().shape
-        saved = (self.flops, self.bytes)
         out = func(*pytree.tree_map_only(DTensor, lambda t: t.to_local(),
                                          args),
                    **pytree.tree_map_only(DTensor, lambda t: t.to_local(),
                                           kwargs))
         if not isinstance(out, torch.Tensor) or out.shape != local:
-            self.flops, self.bytes = saved
+            self.flops, self.bytes, n = saved
+            del self.collectives[n:]
             return None
-        self._note("local", len(self.collectives))
+        self._note("local", saved[2])
         return DTensor.from_local(out, first.device_mesh, first.placements,
                                   run_check=False, shape=first.shape,
                                   stride=first.stride())
 
+    def _scatter_partials(self, args):
+        """A product's operand that holds partial sums, reduced and
+        scattered first onto the dim the product keeps (the first
+        operand's rows or batch, the second's columns; replicated where
+        that dim does not split evenly), so each rank multiplies its
+        share. DTensor weighs only communication, so it multiplies the
+        whole partial sum on every rank where that moves no bytes, and on
+        a 3-D mesh it does so at one sequence length and not at another,
+        which breaks the fit in depth and sequence; XLA's partitioner
+        reduces first. Counted as "partial"."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        out = list(args)
+        for i, t in enumerate(args[:2]):
+            if not isinstance(t, DTensor) \
+                    or not any(p.is_partial() for p in t.placements):
+                continue
+            d, mesh = (0 if i == 0 else t.ndim - 1), t.device_mesh
+            left, placements = t.shape[d], []
+            for k, p in enumerate(t.placements):
+                if type(p) is Shard and p.dim == d:
+                    left //= mesh.size(k)
+                elif p.is_partial():
+                    if left % mesh.size(k):
+                        p = Replicate()
+                    else:
+                        p, left = Shard(d), left // mesh.size(k)
+                placements.append(p)
+            n = len(self.collectives)
+            out[i] = _moved(t, placements)
+            self._note("partial", n)
+        return tuple(out)
+
     def _flatten_local(self, func, args, kwargs):
-        """A view DTensor refused that flattens dims sharded on different
-        mesh dims (2.11: "Attempted to flatten multiple dimensions, with
-        dimension 1 being sharded"; `_mm`'s (B, S, E) → (B·S, E) with B
-        on "data" and S on "model", attention's (B, KV, G, S, D) →
-        (B·KV, G·S, D)) runs on the local shards: each mesh dim shards
-        the output dim its input dim went into (a flattened dim nested,
-        in mesh-dim order), as many rows a rank as the shards hold. Those
+        """A view that flattens dims sharded on different mesh dims, a
+        sharded dim behind the first of its group (`_mm`'s (B, S, E) →
+        (B·S, E) with B on "data" and S on "model", attention's (B, KV,
+        G, S, D) → (B·KV, G·S, D), the mLSTM's (B, H, W, D) → (B·H, W, D)
+        with B on ("pod", "data") and H on "model"), runs on the local
+        shards: each mesh dim shards the output dim its input dim went
+        into (a flattened dim nested, in mesh-dim order), as many rows a
+        rank as the shards hold. DTensor 2.11 refuses such a view ("with
+        dimension 1 being sharded"); 2.13 places it as a `_StridedShard`,
+        whose every redistribution it plans by a graph search, which on a
+        3-D mesh costs more than the rest of the trace together: there
+        it runs here before DTensor sees it (`_run_dtensor`). The
         placements say each rank holds a contiguous block of the rows; it
         holds a strided set (its B rows' shards of S). The bytes and
         FLOPs of a row-wise op are the same either way, but the rows'
-        order is not, so the output remembers, for each flattened dim,
-        the dims it flattened and which mesh dim sharded which
-        (`_flat_src`). An op that keeps the rows carries it
-        (`_carry_flat_src`: a product, an elementwise op), and the view
-        that splits them back restores the placement it came from
-        (`_unflatten_local`). None where the view is not such a flatten
-        (a split or a partial sum of a sharded dim, an uneven shard)."""
+        order is not, so the flatten is recorded in `_flats` (the sizes
+        it flattened and the mesh dims that shard them → which of those
+        dims each mesh dim shards), and a view that splits such a dim
+        back restores the placement it came from (`_unflatten_local`),
+        whatever ops lay between (a product, a cast, a transpose, a
+        time step's index). None where the view is not such a flatten (a
+        split or a partial sum of a sharded dim, an uneven shard)."""
         from torch.distributed.tensor import DTensor, Shard
         t = args[0]
         if kwargs or not isinstance(t, DTensor):
@@ -554,16 +615,20 @@ class CostMode(TorchDispatchMode):
         n = len(self.collectives)
         out = _contiguous(func(local, local_shape), t.device_mesh,
                           placements, shape)
-        out._flat_src = src
+        for sizes, m in src.values():       # size-1 dims left out
+            big = [i for i, z in enumerate(sizes) if z > 1]
+            self._flats[tuple(sizes[i] for i in big), tuple(sorted(m))] = {
+                k: big.index(i) for k, i in m.items()}
         self._note("flatten", n)
         return out
 
     def _unflatten_local(self, func, args, kwargs):
-        """A view that splits `_flatten_local` outputs' dims back into the
-        dims they flattened runs on the local shards too: a mesh dim that
-        still shards such a dim shards the one it sharded before the
-        flatten, any other placement follows its dim. None for any other
-        view of a sharded dim."""
+        """A view that splits a dim back into the dims a `_flatten_local`
+        flattened (the same sizes but for dims of size 1, sharded on the
+        same mesh dims, in `_flats`) runs on the local shards too: each
+        such mesh dim shards the dim it sharded before the flatten, any
+        other placement follows its dim. None for any other view of a
+        sharded dim, and for a view that splits no such dim."""
         from torch.distributed.tensor import Shard
         t = args[0]
         if kwargs:
@@ -573,23 +638,28 @@ class CostMode(TorchDispatchMode):
         if groups is None:
             return None
         group_of = {d: g for g, (ins, _) in enumerate(groups) for d in ins}
-        placements = []
+        placements, split = [], False
         for k, p in enumerate(t.placements):
             if type(p) is Shard:
                 ins, outs = groups[group_of[p.dim]]
                 if len(ins) != 1:
                     return None
                 if len(outs) > 1:
-                    sizes, src = t._flat_src.get(p.dim, ((), {}))
-                    if tuple(shape[o] for o in outs) != sizes \
-                            or k not in src:
+                    big = [o for o in outs if shape[o] > 1]
+                    src = self._flats.get((
+                        tuple(shape[o] for o in big),
+                        tuple(j for j, q in enumerate(t.placements)
+                              if type(q) is Shard and q.dim == p.dim)))
+                    if src is None:
                         return None
-                    p = Shard(outs[src[k]])
+                    p, split = Shard(big[src[k]]), True
                 else:
                     p = Shard(outs[0])
             elif not (p.is_replicate() or p.is_partial()):
                 return None
             placements.append(p)
+        if not split:
+            return None
         mesh, local = t.device_mesh, t.to_local()
         local_shape = _local_shape(shape, placements, mesh)
         if local_shape is None \
@@ -623,11 +693,18 @@ class CostMode(TorchDispatchMode):
         from torch.distributed.tensor import DTensor, Partial, Replicate
         aten = torch.ops.aten
         view = func._overloadpacket.__name__ in _VIEWS
+        mesh = next(t.device_mesh for t in pytree.tree_leaves((args, kwargs))
+                    if isinstance(t, DTensor))
+        ahead = mesh.ndim >= _AHEAD_NDIM
         self._in_dtensor = True
         try:
             with self:
-                if view and hasattr(args[0], "_flat_src"):
+                if view and self._flats:
                     out = self._unflatten_local(func, args, kwargs)
+                    if out is not None:
+                        return out
+                if view and ahead:
+                    out = self._flatten_local(func, args, kwargs)
                     if out is not None:
                         return out
                 if func is aten.new_zeros.default:
@@ -639,6 +716,8 @@ class CostMode(TorchDispatchMode):
                     self._gathered.setdefault(
                         (tuple(src.shape), src.dtype, tuple(index.shape)),
                         []).append((src.device_mesh, tuple(src.placements)))
+                if func in _PRODUCTS and ahead:
+                    args = self._scatter_partials(args)
                 target = args[0] if func._schema.is_mutable else None
                 spec = getattr(target, "_spec", None)
                 saved = (self.flops, self.bytes, len(self.collectives),
@@ -650,8 +729,6 @@ class CostMode(TorchDispatchMode):
                             n = len(self.collectives)
                             out = _reduce_masked(out)
                             self._note("masked", n)
-                        else:
-                            _carry_flat_src(func, args, out)
                         return out
                     # DTensor moved an in-place op's target (gathered a
                     # cache sharded along the written dim): undo its counts
@@ -670,8 +747,6 @@ class CostMode(TorchDispatchMode):
                         out = self._pointwise_local(func, args, kwargs)
                         if out is not None:
                             return out
-                mesh = next(t.device_mesh for t in pytree.tree_leaves(
-                    (args, kwargs)) if isinstance(t, DTensor))
                 if target is not None:
                     # an in-place op (a cache write along a sharded dim)
                     # runs on the target's own shard, as XLA's partitioned
@@ -683,8 +758,10 @@ class CostMode(TorchDispatchMode):
                     return target
                 # reduce partial sums first (DTensor cannot reduce-scatter
                 # a masked partial), then replicate shards a mesh dim at a
-                # time, the last first
-                for k in [None] + list(reversed(range(mesh.ndim))):
+                # time, the last first; on a mesh of three or more dims a
+                # view keeps its partial sums (it is linear in them)
+                first = [] if view and ahead else [None]
+                for k in first + list(reversed(range(mesh.ndim))):
                     def rep(t, k=k):
                         p = list(t.placements)
                         for i, q in enumerate(p):
@@ -692,7 +769,7 @@ class CostMode(TorchDispatchMode):
                                           and isinstance(q, Partial)):
                                 p[i] = Replicate()
                         return (t if p == list(t.placements)
-                                else t.redistribute(t.device_mesh, p))
+                                else _moved(t, p))
                     n = len(self.collectives)
                     new = pytree.tree_map_only(DTensor, rep, (args, kwargs))
                     if all(a is b for a, b in zip(
@@ -710,7 +787,9 @@ class CostMode(TorchDispatchMode):
                 # shard at all): run it on whole local tensors, replicated
                 n = len(self.collectives)
                 args, kwargs = pytree.tree_map_only(
-                    DTensor, lambda t: t.full_tensor(), (args, kwargs))
+                    DTensor, lambda t: _moved(
+                        t, [Replicate()] * mesh.ndim).to_local(),
+                    (args, kwargs))
                 self._note("whole", n)
                 out = func(*args, **kwargs)
                 return pytree.tree_map_only(
@@ -978,8 +1057,13 @@ def cost_extrapolated(arch, shape_name, mesh, remat: str,
         return _fit(m1, m2, d1, d2, units)
 
     if cfg.family == "xlstm" and shape.kind != "decode":
-        # linear in S at a fixed chunk: trace two multiples of the chunk
-        Sa, Sb = 2 * cfg.mlstm_chunk, 4 * cfg.mlstm_chunk
+        # linear in S at a fixed chunk: trace two multiples of the chunk,
+        # 4 and 8 on a mesh of three dims, where DTensor places a group's
+        # products otherwise at 2 chunks than at 4 (a group's all-gather
+        # falls from 3.6e9 to 2.9e9 B a rank at xlstm-350m's train_4k
+        # width), which a line in S cannot carry
+        k = 4 if len(mesh.axis_names) >= _AHEAD_NDIM else 2
+        Sa, Sb = k * cfg.mlstm_chunk, 2 * k * cfg.mlstm_chunk
         out = _fit(at_depths(dc.replace(shape, seq_len=Sa)),
                    at_depths(dc.replace(shape, seq_len=Sb)),
                    Sa, Sb, shape.seq_len)

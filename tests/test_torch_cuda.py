@@ -946,3 +946,26 @@ def test_dense_train_cell_counts_on_this_pytorch(cell):
     assert share <= 0.2, share
     if cell == "train_4k":
         assert m["temp"] < 128e9, m["temp"]
+
+
+def test_xlstm_multi_pod_cell_counts_on_this_pytorch():
+    """The reduced xLSTM train cell (`xlstm-350m.reduced()`, one group,
+    chunk 16, B=8 x T=64) traced on (4, 2) ("data", "model") and on
+    (2, 2, 2) ("pod", "data", "model") in a fake world, on this machine's
+    own PyTorch: the 3-D trace ends, and holds the bands of
+    `tests/test_torch_dryrun_multipod.py` (FLOPs x ranks within 1.0-2.0x
+    the model FLOPs and at most 1.25x the 2-D twin's; no more replicate
+    and whole fallbacks than the twin). Host work on meta tensors: no
+    card is needed."""
+    import test_torch_dryrun_multipod as mp
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        two, three = mp.trace("xlstm", 2), mp.trace("xlstm", 3)
+    finally:
+        torch.set_num_threads(n)
+    print(f"torch {torch.__version__}, xlstm reduced: (4, 2) "
+          f"{two['wall_s']:.1f} s, (2, 2, 2) {three['wall_s']:.1f} s; "
+          f"flops {two['flops']:.4e} / {three['flops']:.4e}; fallbacks "
+          f"{ {k[3:]: (two[k], three[k]) for k in two if k.startswith('fb_') and not k.endswith('_bytes')} }")
+    mp.hold("xlstm", two, three)

@@ -692,7 +692,9 @@ def phase_profile(store, a):
             wall_prof_ms = (time.perf_counter() - t0) * 1e3
         kernels = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a device-side mirror of a program span is not work
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("repro_torch.")):
                 n, ms = kernels.get(e.name, (0, 0.0))
                 kernels[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
         busy = sum(ms for _, ms in kernels.values())

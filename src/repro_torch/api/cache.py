@@ -35,6 +35,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.plan import (CachePlan, shard_selection,
                                   split_cache_hits, split_shards)
 from repro_torch.core.decoder import _pad_pow2
@@ -346,7 +347,9 @@ class BlockCache:
         return torch.zeros((n, self.block_size), dtype=torch.uint8,
                            device=self.device)
 
+    @obs.spanned("upload")
     def _dev(self, x: np.ndarray) -> torch.Tensor:
+        obs.count("host_syncs")
         return torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(
             self.device)
 

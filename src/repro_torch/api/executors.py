@@ -30,6 +30,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.address import Address
 from repro_torch.api.plan import DecodePlan, QueryPlanner, anchor_floor
 from repro_torch.core.decoder import BlockDigestError, _pad_pow2
@@ -61,7 +62,11 @@ class _DecoderStore:
                       on_error=on_error)[:uniq.size]
 
 
+@obs.spanned("upload")
 def _dev(x: np.ndarray, device, dtype=np.int64) -> torch.Tensor:
+    """A pageable host-to-device copy: on a card the host waits for the
+    stream to reach it."""
+    obs.count("host_syncs")
     return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
 
 
@@ -90,6 +95,7 @@ class DeviceExecutor:
         self.store = store
         self.last_corrupt = np.zeros(0, bool)
 
+    @obs.spanned("execute")
     def run(self, plan: DecodePlan, mode2: bool = True,
             verify: Optional[bool] = None, on_error: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -121,12 +127,14 @@ class DeviceExecutor:
             if needed is not None and needed < (dec.da.max_depth or 0):
                 fused = False
         if fused and plan.device_ids is not None:
+            obs.count("route.fused_ids")
             out, lens = _fetch_reads_core(
                 dec.da, store._starts_blk, store._starts_rem,
                 _dev(plan.device_ids, dev), plan.geom())
             return out[:B], lens[:B]
         lens = _dev(plan.lengths[:B], dev, np.int32)
         if fused:
+            obs.count("route.fused_spans")
             b0, r0, end_blk = plan.host_spans()
             out = _fetch_dev_core(
                 dec.da, _dev(b0, dev), _dev(r0, dev),
@@ -136,6 +144,8 @@ class DeviceExecutor:
         # decode per miss set and depth bucket, Mode 1's host entropy
         # stage), then the same ragged gather; bytes stay on the device
         uniq, row_map = plan.host_cover()[3:]
+        obs.count("route.staged")
+        obs.count("blocks.covered", uniq.size)
         rows = store._rows_for_blocks(uniq, mode2, verify=verify,
                                       on_error=on_error)
         if verify and dec.last_bad_blocks.size:
@@ -348,6 +358,7 @@ class StreamingExecutor:
         if cur:
             yield self._execute(cur)
 
+    @obs.spanned("execute")
     def _execute(self, pieces) -> np.ndarray:
         bs = self.store.block_size
         starts = np.asarray([p[0] for p in pieces], np.int64)
@@ -357,6 +368,7 @@ class StreamingExecutor:
         # too): pow2-padding the unique rows could double resident bytes
         # and break the budget. The block cache is bypassed.
         uniq = plan.host_cover()[3]
+        obs.count("blocks.covered", uniq.size)
         dec = self.store.decoder
         if self.sharded is not None:
             # partitioned: exact-size per-shard decode, cache bypassed;
@@ -459,6 +471,7 @@ class ShardedExecutor:
             return _cache_off()
         return self.sharded.cache_info()
 
+    @obs.spanned("execute")
     def run(self, plan: DecodePlan) -> Tuple[torch.Tensor, torch.Tensor]:
         from repro_torch.core.sharded_decode import sharded_decode_blocks
         dec = self.store.decoder
@@ -469,6 +482,7 @@ class ShardedExecutor:
                                 device=dev),
                     torch.zeros((0,), dtype=torch.int32, device=dev))
         uniq = plan.host_cover()[3]
+        obs.count("blocks.covered", uniq.size)
         if self.sharded is not None:
             # partitioned: the residency plane owns the per-shard split,
             # the cache, depth bucketing, shard-local verify and the

@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.api.address import (Address, ByteRange, NameTable, ReadId,
                                      Region, normalize)
 
@@ -190,11 +191,13 @@ class DecodePlan:
         return self.batch * self.max_len
 
     # ----------------------------------------------------------- host cover
+    @obs.spanned("plan")
     def host_spans(self) -> tuple:
         """(b0, r0, end_blk) — the per-span covering coordinates the device
         path consumes (it deduplicates the covering set on device)."""
         return span_coords(self.starts, self.lengths, self.block_size)
 
+    @obs.spanned("plan")
     def host_cover(self) -> tuple:
         """(b0, r0, end_blk, unique_blocks, row_map) — computed lazily; only
         the staged path needs it."""
@@ -312,6 +315,7 @@ class QueryPlanner:
         return self.store.decoder.block_rounds
 
     # ------------------------------------------------------------ fast paths
+    @obs.spanned("plan")
     def plan_read_ids(self, ids: np.ndarray) -> DecodePlan:
         """All-ReadId batches: geometry is store-static and the covering set
         resolves from the device start table."""
@@ -336,6 +340,7 @@ class QueryPlanner:
             device_ids=dev_ids.astype(np.int32), max_depth=self.max_depth,
             block_rounds=self.block_rounds)
 
+    @obs.spanned("plan")
     def plan_records(self, ids: np.ndarray, record_bytes: int) -> DecodePlan:
         """Fixed-size records: arithmetic spans, no index needed."""
         ids = np.asarray(ids, np.int64).reshape(-1)
@@ -355,6 +360,7 @@ class QueryPlanner:
             max_span=record_bytes // self.block_size + 2,
             max_depth=self.max_depth, block_rounds=self.block_rounds)
 
+    @obs.spanned("plan")
     def plan_spans(self, starts: np.ndarray, lengths: np.ndarray,
                    max_len: Optional[int] = None) -> DecodePlan:
         """Raw absolute byte spans (ByteRange batches).
@@ -458,6 +464,7 @@ class QueryPlanner:
             whole = whole and lo == 0 and hi == e - s
         return starts, lengths, (ids if whole and typed else None)
 
+    @obs.spanned("plan")
     def plan(self, addrs: Sequence[Address]) -> DecodePlan:
         """The general entry: any mix of addresses → one DecodePlan. Pure
         whole-record batches keep the device start-table fast path; span

@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import depth as dpth
 from repro_torch.core import entropy as ent
 from repro_torch.core.format import (FNV_OFFSET, N_STREAMS, STREAM_NAMES,
@@ -185,6 +186,7 @@ def _rans_inputs(da: DeviceArchive, sel: torch.Tensor) -> dict:
                 layout=da.layout)
 
 
+@obs.spanned("entropy")
 def _entropy_decode_sel(da: DeviceArchive, sel: torch.Tensor) -> dict:
     """rANS/raw decode of the 4 streams of each selected block.
 
@@ -264,8 +266,10 @@ def _decode_sel_core(da: DeviceArchive, sel: torch.Tensor,
     """Mode-2 block-selection decode: one entropy launch, one match launch
     of `n_rounds` resolve rounds (None = early exit). → (B, block_size)."""
     streams = _entropy_decode_sel(da, sel)
-    return ops.lz77_decode_planes(**_match_inputs(da, streams, sel),
-                                  n_rounds=n_rounds)
+    obs.count("blocks.decoded", sel.shape[0])
+    with obs.span("match"):
+        return ops.lz77_decode_planes(**_match_inputs(da, streams, sel),
+                                      n_rounds=n_rounds)
 
 
 _M32 = 0xFFFFFFFF
@@ -316,9 +320,11 @@ def _decode_window_core(da: DeviceArchive, first: int, last: int,
     wsel = torch.arange(first, last + 1, device=da.device)
     if streams is None:
         streams = _entropy_decode_sel(da, wsel)
-    return _global_match(streams, da.n_cmds[wsel], da.block_len[wsel],
-                         da.block_start[wsel], da.block_size, da.max_cmds,
-                         da.offset_bytes, n_rounds)
+    obs.count("blocks.decoded", last - first + 1)
+    with obs.span("match"):
+        return _global_match(streams, da.n_cmds[wsel], da.block_len[wsel],
+                             da.block_start[wsel], da.block_size,
+                             da.max_cmds, da.offset_bytes, n_rounds)
 
 
 # ------------------------------------------------------------ digest verify
@@ -508,25 +514,31 @@ class Decoder:
             return
         self.check_digests(sel, self._row_digests(sel, rows))
 
+    @obs.spanned("verify")
     def _row_digests(self, sel: np.ndarray, rows: torch.Tensor) -> np.ndarray:
         blen = torch.from_numpy(
             np.ascontiguousarray(self.archive.block_len[sel], np.int32)
         ).to(self.device)
         hi, lo = _fnv_rows_core(rows, blen)
+        obs.count("host_syncs", 3)      # the lengths up, both halves back
         return ((hi.cpu().numpy().astype(np.uint64) << np.uint64(32))
                 | lo.cpu().numpy().astype(np.uint64))
 
     # ------------------------------------------------------------ decode
+    @obs.spanned("upload")
     def _sel_tensor(self, ids: np.ndarray) -> torch.Tensor:
+        obs.count("host_syncs")
         return torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
             self.device)
 
+    @obs.spanned("entropy")
     def _host_streams(self, sel: np.ndarray) -> dict:
         """Mode 1 stream rows of `sel`, decoded on the host and uploaded
         as one (B, width) u8 tensor per stream."""
-        return {k: torch.from_numpy(v).to(self.device) for k, v in
-                _entropy_decode_host(self.archive, sel,
-                                     self.da.max_cmds).items()}
+        streams = _entropy_decode_host(self.archive, sel, self.da.max_cmds)
+        obs.count("host_syncs", len(streams))
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in streams.items()}
 
     # ------------------------------------------- recover / degrade
     def recover_info(self) -> dict:
@@ -743,9 +755,12 @@ class Decoder:
 
         def match_group(g: np.ndarray, n_rounds) -> torch.Tensor:
             gsel = self._sel_tensor(g)
-            return ops.lz77_decode_planes(
-                **_match_inputs(self.da, self._host_streams(g), gsel),
-                n_rounds=n_rounds)
+            streams = self._host_streams(g)
+            obs.count("blocks.decoded", g.size)
+            with obs.span("match"):
+                return ops.lz77_decode_planes(
+                    **_match_inputs(self.da, streams, gsel),
+                    n_rounds=n_rounds)
 
         return self._decode_ra(sel_np, pad_groups, match_group)
 

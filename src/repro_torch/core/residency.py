@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.decoder import (BlockDigestError, Decoder, DeviceArchive,
                                       _decode_sel_core, _decode_window_core,
                                       _pad_pow2)
@@ -66,6 +67,7 @@ class ResidencyStats:
 _GATHER_SLAB = 1 << 24
 
 
+@obs.spanned("gather")
 def _gather_reads_core(rows: torch.Tensor, row_map: torch.Tensor,
                        local: torch.Tensor, lengths: torch.Tensor,
                        block_size: int, max_len: int) -> torch.Tensor:
@@ -107,7 +109,11 @@ def _fetch_dev_core(da: DeviceArchive, b0: torch.Tensor, local: torch.Tensor,
     # block, so they dedup away instead of decoding strangers
     blocks = torch.where(blocks < end_blk.long()[:, None], blocks,
                          b0[:, None]).clamp(0, n_blocks - 1)
-    uniq, inv = torch.unique(blocks.reshape(-1), return_inverse=True)
+    with obs.span("cover_sync"):
+        # the covering set's size is read back: the host waits here
+        uniq, inv = torch.unique(blocks.reshape(-1), return_inverse=True)
+    obs.count("host_syncs")
+    obs.count("blocks.covered", uniq.numel())
     if da.mode == "global":
         rows = _decode_window_core(da, 0, n_blocks - 1, da.max_depth)[uniq]
     else:
@@ -303,6 +309,7 @@ class CompressedResidentStore:
                 if good.size == blks.size:
                     self._cache.install_extras(blks, wrows)
                 elif good.size:
+                    obs.count("host_syncs")
                     self._cache.install_extras(
                         blks[good], wrows[torch.from_numpy(good).to(
                             wrows.device)])
@@ -321,6 +328,7 @@ class CompressedResidentStore:
         return self._executor.last_corrupt
 
     # -------------------------------------------------------------- lookups
+    @obs.spanned("fetch_reads")
     def fetch_reads(self, ids: Sequence[int], mode2: bool = True,
                     verify: Optional[bool] = None,
                     on_error: Optional[str] = None
@@ -332,6 +340,7 @@ class CompressedResidentStore:
         Requires a ReadIndex. `verify`/`on_error` override the store
         defaults for this call; per-read corrupt outcomes
         (on_error="partial") are in `last_corrupt` afterwards."""
+        obs.count("requests")
         if self.index is None:
             raise ValueError("fetch_reads requires a ReadIndex")
         ids_np = np.asarray(ids, np.int64).reshape(-1)
@@ -348,11 +357,13 @@ class CompressedResidentStore:
         out, lens = self.fetch_reads(np.array([r], np.int64), mode2=mode2)
         return out[0, :int(lens[0])].cpu().numpy()
 
+    @obs.spanned("fetch_block_range")
     def fetch_block_range(self, b0: int, b1: int, mode2: bool = True
                           ) -> torch.Tensor:
         """Position-invariant block-range decode (stays on the device):
         (b1-b0, block_size) u8 rows, tail bytes of a partial final block
         zeroed. One block-aligned span plan through the query plane."""
+        obs.count("requests")
         n_blocks = self.decoder.da.n_blocks
         if not 0 <= b0 <= b1 <= n_blocks:
             raise IndexError(
@@ -368,11 +379,13 @@ class CompressedResidentStore:
         rows, _ = executor.run(plan, mode2=mode2)
         return rows
 
+    @obs.spanned("fetch_records")
     def fetch_records(self, ids: Sequence[int], record_bytes: int,
                       mode2: bool = True) -> torch.Tensor:
         """Batched fixed-record fetch: (B,) ids → (B, record_bytes) u8.
         Same pipeline as `fetch_reads` with arithmetic start offsets, so it
         needs no index."""
+        obs.count("requests")
         ids_np = np.asarray(ids, np.int64).reshape(-1)
         if ids_np.size == 0:
             return torch.zeros((0, record_bytes), dtype=torch.uint8,

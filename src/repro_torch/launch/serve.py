@@ -19,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.archive import GenomicArchive
 from repro_torch.configs import get_config
 from repro_torch.core.decoder import resolve_device
@@ -96,7 +97,7 @@ def main(argv=None):
           f"rows: {t_fetch*1e3:.1f} ms "
           f"({len(tickets)/t_fetch:.0f} reads/s) "
           f"last_flush={batcher.stats()['last_flush_us']:.0f}us "
-          f"cache={batcher.cache_info()}")
+          f"cache={batcher.cache_info()} counts={dict(obs.COUNTS)}")
     if not all(len(reads[t]) > 0 for t in tickets):
         raise SystemExit("a queued request came back empty")
 

@@ -969,3 +969,64 @@ def test_xlstm_multi_pod_cell_counts_on_this_pytorch():
           f"flops {two['flops']:.4e} / {three['flops']:.4e}; fallbacks "
           f"{ {k[3:]: (two[k], three[k]) for k in two if k.startswith('fb_') and not k.endswith('_bytes')} }")
     mp.hold("xlstm", two, three)
+
+
+def _sync_sites_module():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "sync_sites_torch.py"
+    spec = importlib.util.spec_from_file_location("sync_sites_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def small_fused_store():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from repro_torch.core.index import ReadIndex
+    from repro_torch.core.residency import CompressedResidentStore
+    data = make_fastq("noisy", n_reads=2000, seed=11)
+    a = encode(data, block_size=4096)
+    return CompressedResidentStore(a, ReadIndex.build(data, 4096),
+                                   device="cuda")
+
+
+@pytest.mark.parametrize("route", ["fetch_block_range", "fetch_reads"])
+def test_host_syncs_counts_each_sync_of_the_fused_routes(small_fused_store,
+                                                         route):
+    """`obs.COUNTS["host_syncs"]` counts one for each call of the request
+    path that `torch.cuda.set_sync_debug_mode("warn")` reports."""
+    from repro_torch import obs
+    st = small_fused_store
+    n = st.decoder.da.n_blocks
+    ids = np.random.default_rng(5).integers(0, st.index.n_reads, 300)
+    fn = {"fetch_block_range": lambda: st.fetch_block_range(1, n - 1),
+          "fetch_reads": lambda: st.fetch_reads(ids)}[route]
+    fn()
+    torch.cuda.synchronize()
+    before = obs.COUNTS["host_syncs"]
+    sites = _sync_sites_module().sync_sites(fn)
+    print(route, dict(sites))
+    assert obs.COUNTS["host_syncs"] - before == sum(sites.values()) > 0
+
+
+def test_program_spans_leave_no_device_mirror(small_fused_store):
+    """Under a profiler the program's spans are CPU events only: the
+    device trace's operations stay kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+    st = small_fused_store
+    st.fetch_block_range(0, 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st.fetch_block_range(0, 4)
+        torch.cuda.synchronize()
+    names = {(e.name, e.device_type) for e in prof.events()
+             if e.name.startswith("repro_torch.")}
+    cpu = torch.autograd.DeviceType.CPU
+    assert {n for n, d in names if d == cpu} >= {
+        "repro_torch.fetch_block_range", "repro_torch.gather"}
+    assert {d for _, d in names} == {cpu}

@@ -454,6 +454,7 @@ def test_serve_launcher_on_the_cpu():
     out = res.stdout
     assert "tuned profile [ratio]: " in out
     assert "4 queued requests coalesced into 1 fetch(es)" in out
+    assert "counts={'requests': 1, " in out
     assert "miss=0.000" in out and "region 'SRR0." in out
     assert "4 requests × 3 tokens in" in out and "tok/s on CPU)" in out
 
